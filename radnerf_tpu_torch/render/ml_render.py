@@ -1,0 +1,220 @@
+"""Rad-NeRF MoE test-time render (twin of the test half of
+radnerf_tpu/render/ml_render.py).
+
+Gate the rays, render the K sub-NeRFs, gate-compose. With a shared
+encoder, union sampling and the flat test layout, every loop iteration
+marches ONCE against the union of the experts' occupancy grids and
+hash-encodes ONCE; each expert masks sigma to its own membership (a
+non-member sample has alpha 0, as if never marched) and keeps its own
+resumable compositing carry. The reference's `lax.while_loop` is a Python
+loop whose condition is read back from the device once per iteration.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..models.gates import apply_ray_gate
+from ..models.mlp import apply_mlp
+from ..models.mngp import MNGPConfig, _encode
+from ..models.ngp import scene_center_half
+from ..ops.compositing import composite_test_flat
+from ..ops.fma import fma32
+from ..ops.hashgrid_brick3 import pack_brick3_table
+from ..ops.intersection import scene_near_far
+from ..ops.marching import march_rays_test_flat, occupancy_lookup
+from ..ops.sh import sh_encode_dir
+from ..ops.trunc_exp import trunc_exp
+from .render import NEAR_DISTANCE, RenderConfig, background_color
+
+
+def _gate_input(rays_o, rays_d, imgs_d, gate_type: str) -> torch.Tensor:
+    """'ray': origin ‖ direction; 'image': origin ‖ mean image direction."""
+    if gate_type == "image":
+        return torch.cat([rays_o, imgs_d], dim=1)
+    return torch.cat([rays_o, rays_d], dim=1)
+
+
+def _ml_test_union_flat(
+    params, state, cfg: MNGPConfig, rays_o, rays_d, rcfg: RenderConfig
+) -> dict:
+    """Union-of-experts test render: per iteration ONE flat march against
+    the union grid and ONE shared hash encode serve all K experts; the
+    march cursor is shared (an expert only ever skips non-member samples,
+    alpha 0). Returns rgb (K, N, 3), depth and opacity (K, N),
+    total_samples, and the loop's iteration count."""
+    K, N = cfg.n_experts, rays_o.shape[0]
+    dev = rays_o.device
+    center, half = scene_center_half(state)
+    t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
+    mcfg = rcfg.march(cfg)
+    occ_union = state["occ"].any(dim=0).contiguous()
+    d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
+    packed = pack_brick3_table(params["hash_table"])   # once per call
+    # per-ray samples_done retirement bounds real progress; max_iters is
+    # the reference's safety valve
+    max_iters = min(
+        N * (rcfg.max_samples
+             + int(math.ceil(mcfg.k_candidates / rcfg.test_k_block))),
+        2**31 - 2,
+    )
+    acc = {
+        "opacity": torch.zeros((K, N), device=dev),
+        "depth": torch.zeros((K, N), device=dev),
+        "rgb": torch.zeros((K, N, 3), device=dev),
+        "transmittance": torch.ones((K, N), device=dev),
+        "alive": (t1 >= 0)[None].expand(K, N),
+    }
+    cursor = t1
+    samples_done = torch.zeros(N, dtype=torch.int32, device=dev)
+    total_samples = torch.zeros((), dtype=torch.int64, device=dev)
+    i = 0
+    while i < max_iters:
+        union_alive = acc["alive"].any(dim=0)
+        if not bool((union_alive & (cursor < t2)).any()):
+            break
+        m = march_rays_test_flat(
+            rays_o, rays_d, cursor, t2, occ_union, mcfg, union_alive,
+            k_block=rcfg.test_k_block, cap_per_ray=rcfg.test_block_samples,
+            budget_per_ray=rcfg.test_budget_per_ray,
+        )
+        rid = m["ray_id"].long()
+        xyz = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
+        member = torch.stack([
+            occupancy_lookup(xyz, m["deltas"], state["occ"][k], mcfg)
+            for k in range(K)
+        ]) & m["valid"][None, :]
+
+        feat = _encode(params, state, cfg, xyz, packed=packed)  # ONCE
+        h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
+        sigmas = torch.where(member, trunc_exp(h[..., 0]), 0.0)
+        rgb_in = torch.cat(
+            [d_enc_ray[rid][None].expand(K, -1, -1), h[..., 1:]], dim=-1
+        )
+        rgbs = apply_mlp(
+            params["rgb"], rgb_in, out_act=cfg.rgb_act.lower(),
+            compute_dtype=cfg.cdtype,
+        ).to(torch.float32)                                  # (K, B, 3)
+
+        acc = composite_test_flat(
+            sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"], m["offsets"],
+            m["cap"], member, acc, rcfg.T_threshold,
+        )
+        samples_done = samples_done + m["consumed"]
+        acc["alive"] = acc["alive"] & (
+            samples_done < rcfg.max_samples)[None, :]
+        cursor = m["new_cursor"]
+        total_samples = total_samples + m["consumed"].sum()
+        i += 1
+
+    rgb_bg = background_color(rcfg, None, device=dev)
+    return {
+        "rgb": acc["rgb"] + rgb_bg * (1.0 - acc["opacity"][..., None]),
+        "depth": acc["depth"],
+        "opacity": acc["opacity"],
+        "total_samples": total_samples,
+        "iterations": i,
+    }
+
+
+def ml_render_test(
+    params: dict,
+    state: dict,
+    cfg: MNGPConfig,
+    gate_params: dict,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    imgs_d: torch.Tensor,
+    rcfg: RenderConfig,
+    gate_type: str = "ray",
+) -> dict:
+    """Test-time MoE render of (N, 3) rays. Returns rgb (N, 3), depth
+    (N, K), opacity (N,), gating_code (N, K), gating_importance (K,),
+    independent_rgbs (K, N, 3), total_samples, and iterations (the
+    while-loop count)."""
+    if not (cfg.shared_encoder and rcfg.union_sampling
+            and rcfg.test_layout == "flat"):
+        raise NotImplementedError(
+            "the port renders shared_encoder + union_sampling + "
+            "test_layout='flat' only; the per-expert and dense test paths "
+            "are queued in ROADMAP.md"
+        )
+    with torch.no_grad():
+        gate, importance, _ = apply_ray_gate(
+            gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
+            compute_dtype=cfg.cdtype,
+        )
+        res = _ml_test_union_flat(params, state, cfg, rays_o, rays_d, rcfg)
+    return {
+        "rgb": torch.einsum("nk,knc->nc", gate, res["rgb"]),
+        "depth": res["depth"].T,
+        "opacity": torch.einsum("nk,kn->n", gate, res["opacity"]),
+        "gating_code": gate,
+        "gating_importance": importance,
+        "independent_rgbs": res["rgb"],
+        "total_samples": res["total_samples"],
+        "iterations": res["iterations"],
+    }
+
+
+def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
+    """(N, 3) camera-frame directions x (N, 3, 4) or (3, 4) camera-to-world
+    -> (rays_o, rays_d), each (N, 3); directions are not normalized."""
+    c2w = c2w.expand(directions.shape[0], 3, 4)
+    rays_d = torch.einsum("nc,nbc->nb", directions, c2w[..., :3])
+    return c2w[..., 3], rays_d
+
+
+def render_rays_chunked(
+    params: dict,
+    state: dict,
+    cfg: MNGPConfig,
+    gate_params: dict,
+    directions: torch.Tensor,
+    pose: torch.Tensor,
+    rcfg: RenderConfig,
+    chunk: int = 4096,
+    gate_type: str = "ray",
+    mean_dir: torch.Tensor | None = None,
+) -> dict:
+    """Render one camera, as the trainer's validation loop does: chunks of
+    `chunk` rays (the last one padded by repeating its final direction),
+    rays from `pose` (3, 4), and the gated consensus depth
+    sum_k depth_k * gate_k.
+
+    Returns rgb (P, 3), depth (P,), opacity (P,) for the P directions,
+    plus total_samples and iterations summed over chunks."""
+    n_pix = directions.shape[0]
+    dev = directions.device
+    if mean_dir is None:
+        mean_dir = torch.zeros(3, device=dev)
+    rgb, depth, opacity = [], [], []
+    total_samples, iterations = 0, 0
+    for c0 in range(0, n_pix, chunk):
+        c1 = min(c0 + chunk, n_pix)
+        dirs = directions[c0:c1]
+        pad = chunk - (c1 - c0)
+        if pad:
+            dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
+        poses_c = pose.expand(chunk, 3, 4)
+        rays_o, rays_d = get_rays(dirs, poses_c)
+        imgs_d = get_rays(mean_dir.expand(chunk, 3), poses_c)[1]
+        out = ml_render_test(
+            params, state, cfg, gate_params, rays_o.contiguous(),
+            rays_d.contiguous(), imgs_d, rcfg, gate_type,
+        )
+        n = c1 - c0
+        rgb.append(out["rgb"][:n])
+        depth.append((out["depth"] * out["gating_code"]).sum(dim=1)[:n])
+        opacity.append(out["opacity"][:n])
+        total_samples += int(out["total_samples"])
+        iterations += out["iterations"]
+    return {
+        "rgb": torch.cat(rgb),
+        "depth": torch.cat(depth),
+        "opacity": torch.cat(opacity),
+        "total_samples": total_samples,
+        "iterations": iterations,
+    }
