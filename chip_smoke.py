@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Rad-NeRF MoE test-time render on one NVIDIA GPU.
+"""Drive the PyTorch port's Rad-NeRF MoE render and training on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -21,8 +22,22 @@ CPU fallback):
      after it; one chunk is profiled (device busy share, top
      kernels); then one 256-ray chunk is rendered again on the card and on
      the CPU (plain versions) and compared;
-  5. a JSON line with every kernel's check, launches, times and bound;
-  6. the last line: {"ok": true, "device": {...}}.
+  5. training at full width (zoo=2, T=2^19, L=16, G=128, bf16, brick3;
+     batch 8192 in 4 microbatches of 2048 rays, budget 64, lr 1e-2, cv
+     1e-2, depth-mutual 5e-3) on an analytic emissive 0.3-sphere: a ray
+     store of 32 cameras x 64x64 pixels whose target colours the port's
+     own march and compositor render (no dataset); then the brick3
+     table-gradient kernel against its plain version (and one
+     index_add_ call) on one microbatch's marched samples; then
+     TRAIN_STEPS steps of Trainer.fit_steps (grid updates every 16 steps,
+     every cell below step 256, the adaptive budget), launch counts reset
+     just before and read just after; loss and PSNR at intervals, train
+     rays/s (median over the steps after the first 16), one step
+     profiled; then one 256-ray step on the card and on the CPU (plain
+     versions) from the same parameters and draws, loss and every
+     gradient leaf compared;
+  6. a JSON line with every kernel's check, launches, times and bound;
+  7. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -38,18 +53,24 @@ from radnerf_tpu_torch import kernels
 from radnerf_tpu_torch.models.gates import init_ray_gate
 from radnerf_tpu_torch.models.mngp import MNGPConfig, init_mngp, init_mngp_state
 from radnerf_tpu_torch.models.ngp import scene_center_half
+from radnerf_tpu_torch.ops.compositing import composite_train_flat
 from radnerf_tpu_torch.ops.fma import fma32
 from radnerf_tpu_torch.ops.hashgrid_brick3 import (
-    _OFFS3, LANES, _brick3_row, _encode_plain, _geometry, _patch_lane3,
-    brick3_addrs, hashgrid_encode_brick3_fwd_impl, pack_brick3_table,
+    _corner_terms, _encode_plain, _table_grad_plain,
+    hashgrid_encode_brick3_fwd_impl, hashgrid_table_grad_brick3,
+    pack_brick3_table,
 )
 from radnerf_tpu_torch.ops.intersection import scene_near_far
 from radnerf_tpu_torch.ops.marching import (
-    _occ_flat_index, calc_dt, march_rays_test_flat, occupancy_lookup,
-    occupancy_lookup_bricks, sample_lattice,
+    _occ_flat_index, calc_dt, march_rays_test_flat, march_rays_union_flat,
+    occupancy_lookup, occupancy_lookup_bricks, sample_lattice,
+)
+from radnerf_tpu_torch.parallel.step import (
+    microbatched_value_and_grad, tree_leaves, tree_unflatten,
 )
 from radnerf_tpu_torch.render.ml_render import get_rays, render_rays_chunked
 from radnerf_tpu_torch.render.render import NEAR_DISTANCE, RenderConfig
+from radnerf_tpu_torch.train import trainer as tt
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32, outside the tensor cores
@@ -63,6 +84,19 @@ RENDER_REPEATS = 3              # timed full renders (median reported)
 # = exp(bf16) by a relative 2^-8 at most; the march and the encode are
 # exact (phase 3), so nothing else moves.
 CPU_TOL = {"rgb": 1e-2, "opacity": 5e-3, "depth": 5e-3}
+TRAIN_STEPS = 320               # 256 warmup steps, then 4 later updates
+STORE_IMAGES, STORE_SIDE = 32, 64   # the ray store: 32 cameras x 64x64
+# card vs CPU, one 256-ray training step: the march and the encode are
+# exact on both (phase 3), the table gradient is the same f32 sum in
+# another (atomic) order; the bf16 MLPs (cuBLAS vs the CPU) may round an
+# output one bf16 ulp apart (2^-8 relative), which the backward carries
+# into every leaf: the loss within 1%, each gradient leaf within 2% of its
+# largest entry
+TRAIN_CPU_LOSS_RTOL = 1e-2
+TRAIN_CPU_GRAD_RTOL = 2e-2
+# kernel 3 vs its plain version: the same f32 products summed by atomics
+# in an order that changes from run to run: within 2 (n - 1) u sum|terms|
+# per table entry (n terms, u = 2^-24)
 
 
 def check(ok: bool, what: str) -> None:
@@ -142,21 +176,14 @@ def to_cpu(tree):
 
 
 def brick3_words_needed(x: torch.Tensor, cfg) -> int:
-    """Distinct packed-table words the encode of x must read."""
-    L, R = cfg.n_levels, cfg.table_size // LANES
-    xi, yi, zi, _ = _geometry(x, cfg, list(range(L)))
-    words = []
-    for a in brick3_addrs(cfg):
-        px, py, pz, lane0 = _patch_lane3(xi[a.level], yi[a.level],
-                                         zi[a.level])
-        base = (a.level * R + _brick3_row(a, px, py, pz, R)) * LANES + lane0
-        words += [base + off for off in _OFFS3]
-    return int(torch.unique(torch.cat(words)).numel())
+    """Distinct packed-table words the encode of x must read (a packed
+    word and a table entry share one flat index)."""
+    return int(torch.unique(_corner_terms(x, cfg)[0]).numel())
 
 
-def profile_chunk(render) -> None:
-    """Where one chunk's render time goes: wall time, summed device kernel
-    time (kernels run on one stream, so the sum is the busy time), launch
+def profile_call(render, label: str = f"one {CHUNK}-ray chunk") -> dict:
+    """Where one call's time goes: wall time, summed device kernel time
+    (kernels run on one stream, so the sum is the busy time), launch
     count, and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -177,13 +204,278 @@ def profile_chunk(render) -> None:
     launches = sum(n for _, n in by_name.values())
     if not by_name:
         print("[profile] device time: not measured (no CUDA events)")
-        return
-    print(f"[profile] one {CHUNK}-ray chunk: wall {wall_us / 1e3:.2f} ms, "
+        return {}
+    print(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, "
           f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
           f"{launches} device kernels")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (us, n) in top:
         print(f"[profile]   {us / 1e3:8.3f} ms {n:5d}x  {name[:90]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "kernels": launches}
+
+
+def sphere_store(n_img: int, side: int, device) -> dict:
+    """The ray store of the training phase: n_img cameras on a shell of
+    radius 1.2 (a Fibonacci spiral), each looking at the origin through
+    the same side x side pinhole directions."""
+    i = np.arange(n_img) + 0.5
+    z = 1.0 - 2.0 * i / n_img
+    phi = np.pi * (1.0 + 5.0**0.5) * i
+    eyes = 1.2 * np.stack([np.sqrt(1 - z * z) * np.cos(phi),
+                           np.sqrt(1 - z * z) * np.sin(phi), z], axis=1)
+    poses = []
+    for eye in eyes:
+        fwd = -eye / np.linalg.norm(eye)
+        up = [0.0, 0.0, 1.0] if abs(fwd[2]) < 0.9 else [1.0, 0.0, 0.0]
+        right = np.cross(fwd, up)
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        poses.append(np.concatenate(
+            [np.stack([right, down, fwd], axis=1), eye[:, None]], axis=1))
+    u, v = np.meshgrid((np.arange(side) + 0.5) / side - 0.5,
+                       (np.arange(side) + 0.5) / side - 0.5)
+    dirs = np.stack([u, v, np.full_like(u, 1.2)], -1).reshape(-1, 3)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return {
+        "poses": torch.tensor(np.stack(poses), dtype=torch.float32,
+                              device=device),
+        "directions": torch.tensor(dirs, dtype=torch.float32, device=device),
+    }
+
+
+@torch.no_grad()
+def render_sphere(store: dict, cfg: MNGPConfig, chunk: int = 4096):
+    """Target colours of every ray of the store: examples/smoke_e2e.py's
+    emissive sphere (sigma 40 inside radius 0.3, colour (0.5 + x, 0.5 + y,
+    0.5 - z) clipped), rendered by the port's union march (a grid of the
+    sphere's cells, jitter 0.5) and training compositor, white
+    background. Returns (n_img, n_pix, 3)."""
+    dev = store["directions"].device
+    g = cfg.grid_size
+    lin = (torch.arange(g, device=dev) + 0.5) / g * 2 - 1
+    xx, yy, zz = torch.meshgrid(lin, lin, lin, indexing="ij")
+    occ = ((xx**2 + yy**2 + zz**2).sqrt() * cfg.scale < 0.32)[None, None]
+    mcfg = RenderConfig(samples_per_ray=512).march(cfg)
+    n_img, n_pix = store["poses"].shape[0], store["directions"].shape[0]
+    out = []
+    for img in range(n_img):
+        for c0 in range(0, n_pix, chunk):
+            rays_o, rays_d = get_rays(store["directions"][c0:c0 + chunk],
+                                      store["poses"][img])
+            rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+            t1, t2 = scene_near_far(rays_o, rays_d, torch.zeros(3, device=dev),
+                                    torch.full((3,), cfg.scale, device=dev),
+                                    NEAR_DISTANCE)
+            m, member = march_rays_union_flat(
+                rays_o, rays_d, t1, t2, occ.expand(1, cfg.cascades, g, g, g),
+                mcfg, torch.full_like(t1, 0.5), budget_per_ray=256)
+            check(int(m["total"]) < m["ts"].shape[0],
+                  "target render truncated rays")
+            rid = m["ray_id"].long()
+            x = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
+            sigma = torch.where(x.norm(dim=1) < 0.3, 40.0, 0.0)
+            color = torch.stack([0.5 + x[:, 0], 0.5 + x[:, 1],
+                                 0.5 - x[:, 2]], 1).clamp(0, 1)
+            res = composite_train_flat(sigma, color, m["deltas"], m["ts"],
+                                       m["ray_id"], m["offsets"], m["cap"],
+                                       member[0])
+            out.append(res["rgb"] + (1.0 - res["opacity"][:, None]))
+    return torch.cat(out).reshape(n_img, n_pix, 3)
+
+
+def table_grad_check(trainer, hcfg) -> dict:
+    """Kernel 3 against its plain version (and one index_add_ call) at one
+    microbatch's shapes: the 2048 x 64 slots of a union march of the
+    trainer's first batch slice, with a random output gradient on the
+    valid slots (zero elsewhere, as the path gives)."""
+    dev = trainer.data["directions"].device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    mb = trainer.tcfg.batch_size // trainer.tcfg.n_microbatch
+    batch = tt.sample_batch(gen, trainer.data, mb)
+    poses = trainer.data["poses"][batch["img_idxs"]]
+    rays_o, rays_d = get_rays(trainer.data["directions"][batch["pix_idxs"]],
+                              poses)
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    state = trainer.model_state
+    center, half = scene_center_half(state)
+    t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
+    m, _ = march_rays_union_flat(
+        rays_o, rays_d, t1, t2, state["occ"], trainer.rcfg.march(trainer.cfg),
+        batch["noise"], budget_per_ray=trainer.rcfg.budget_per_ray,
+        cap_scale=trainer.cfg.n_experts)
+    rid = m["ray_id"].long()
+    x = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
+    xn = ((x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
+          ).clamp(0.0, 1.0).contiguous()
+    L, T = hcfg.n_levels, hcfg.table_size
+    g = torch.randn((xn.shape[0], 2 * L), generator=gen, device=dev)
+    g = torch.where(m["valid"][:, None], g, 0.0).contiguous()
+    got = hashgrid_table_grad_brick3(xn, g, hcfg)
+    ref = _table_grad_plain(xn, g, hcfg)
+    idx, w = _corner_terms(xn, hcfg)
+    vals = (w[..., None] * g.reshape(-1, L, 2).permute(1, 0, 2)[:, None])
+    flat_idx, flat_vals = idx.reshape(-1), vals.reshape(-1, 2)
+    abs_sum = torch.zeros((L * T, 2), device=dev).index_add_(
+        0, flat_idx, flat_vals.abs())
+    count = torch.zeros(L * T, device=dev).index_add_(
+        0, flat_idx, (flat_vals[:, 0] != 0).float())
+    tol = 2 * (count[:, None] - 1).clamp_min(1) * 2.0**-24 * abs_sum
+    err = (got - ref).abs().reshape(-1, 2)
+    torch.cuda.synchronize()
+    check(bool((err <= tol).all()),
+          f"brick3_table_grad kernel vs plain: max|diff| {float(err.max())}")
+    n_valid = int(m["total"])
+    rec = {
+        "name": "brick3_table_grad", "route": "cuda",
+        "source": "radnerf_tpu_torch/csrc/brick3_table_grad.cu",
+        "replaces": "radnerf_tpu/ops/hashgrid_brick3.py:493",
+        "check": "within 2 (n - 1) 2^-24 sum|terms| per entry "
+                 "(atomic summation order)",
+        "max_abs_err": float(err.max()),
+        "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
+        "shape": f"{xn.shape[0]} samples ({n_valid} valid), L={L}, "
+                 f"T=2^{hcfg.log2_table_size}, out {L * T * 8 >> 20} MiB",
+        "ms": median_ms(lambda: hashgrid_table_grad_brick3(xn, g, hcfg)),
+        "plain_ms": median_ms(lambda: _table_grad_plain(xn, g, hcfg)),
+        # one PyTorch call for the same scatter-add, given the flat corner
+        # indices and products (the zero-fill included, as in the kernel)
+        "library_ms": median_ms(lambda: torch.zeros(
+            (L * T, 2), device=dev).index_add_(0, flat_idx, flat_vals)),
+    }
+    # x and g read once, the 64 MiB gradient written once; ~60 f32
+    # operations per valid (sample, level): 3 fma-floor-sub, 8 weights,
+    # 16 products, 16 adds
+    rec.update(bound(xn.shape[0] * (12 + 8 * L) + L * T * 8,
+                     n_valid * L * 60))
+    print(f"[kernels] {rec['name']}: ok (max|diff| {rec['max_abs_err']:.3g},"
+          f" {rec['max_err_over_tol']:.3g} of its bound) on {rec['shape']}; "
+          f"median {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+          f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+          f"ms ({rec['bound_by']})")
+    return rec
+
+
+def train_phase(cfg: MNGPConfig, dev) -> tuple:
+    """The training slice at full width. Returns (kernel 3 record, launch
+    counts of the TRAIN_STEPS steps, summary)."""
+    t0 = time.perf_counter()
+    store = sphere_store(STORE_IMAGES, STORE_SIDE, dev)
+    store["rays"] = render_sphere(store, cfg)
+    torch.cuda.synchronize()
+    n_rays = store["rays"].shape[0] * store["rays"].shape[1]
+    print(f"[train] ray store: {n_rays} rays ({STORE_IMAGES} cameras x "
+          f"{STORE_SIDE}x{STORE_SIDE}), targets rendered in "
+          f"{time.perf_counter() - t0:.1f} s; mean colour "
+          f"{float(store['rays'].mean()):.4f}")
+    tcfg = tt.TrainConfig()
+    gen = torch.Generator().manual_seed(1)
+    trainer = tt.Trainer(cfg, tcfg, init_mngp(gen, cfg, device=dev),
+                         init_ray_gate(gen, cfg.n_experts, device=dev),
+                         init_mngp_state(cfg, device=dev), store,
+                         torch.Generator(device=dev).manual_seed(2))
+    check(tcfg.n_microbatch == 4, "batch 8192 must take 4 microbatches")
+    trainer.update_grid(warmup=True)        # the state a first step sees
+    k3 = table_grad_check(trainer, cfg.hash)
+    trainer.model_state = init_mngp_state(cfg, device=dev)
+
+    log, secs = [], []
+    t_last = [0.0]
+
+    def on_step(step, loss, aux):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs.append(now - t_last[0])
+        t_last[0] = now
+        if step % 32 == 0 or step == TRAIN_STEPS - 1:
+            rec = {"step": step, "loss": float(loss),
+                   "psnr": float(aux["psnr"]),
+                   "budget_per_ray": trainer.rcfg.budget_per_ray,
+                   "budget_util": float(aux["budget_util"]),
+                   "occ": float(trainer.model_state["occ"].float().mean())}
+            log.append(rec)
+            print(f"[train] step {step}: loss {rec['loss']:.5f} psnr "
+                  f"{rec['psnr']:.2f} budget {rec['budget_per_ray']} util "
+                  f"{rec['budget_util']:.3f} occupied {rec['occ']:.4f}")
+        else:
+            log.append({"step": step, "loss": float(loss),
+                        "psnr": float(aux["psnr"])})
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_last[0] = t0 = time.perf_counter()
+    trainer.fit_steps(TRAIN_STEPS, on_step)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    rates = [tcfg.batch_size / s for s in secs[16:]]
+    losses = [r["loss"] for r in log]
+    psnrs = [r["psnr"] for r in log]
+    first, last = float(np.mean(psnrs[:16])), float(np.mean(psnrs[-16:]))
+    print(f"[train] {TRAIN_STEPS} steps of {tcfg.batch_size} rays in "
+          f"{total:.1f} s; train rays/s median {np.median(rates):.0f} over "
+          f"steps 16-{TRAIN_STEPS - 1} (min {min(rates):.0f}, max "
+          f"{max(rates):.0f}); psnr {first:.2f} -> {last:.2f} dB (mean of "
+          f"the first and last 16 steps); budget {trainer.rcfg.budget_per_ray}"
+          f"; launches {launches}")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    check(last > first + 3.0, f"psnr did not rise: {first} -> {last}")
+    n_updates = -(-TRAIN_STEPS // tt.UPDATE_INTERVAL)
+    mb = tcfg.n_microbatch
+    check(launches["brick3_table_grad"] == mb * TRAIN_STEPS,
+          f"kernel 3 launched {launches['brick3_table_grad']} times, not "
+          f"{mb} x {TRAIN_STEPS}")
+    check(launches["occ_lookup"] == mb * TRAIN_STEPS, "occ_lookup launches")
+    check(launches["brick3_encode_fwd"]
+          == mb * TRAIN_STEPS + n_updates * cfg.n_experts * cfg.cascades,
+          "brick3_encode_fwd launches")
+
+    prof = profile_call(
+        lambda: trainer.train_step(tt.sample_batch(
+            trainer.gen, trainer.data, tcfg.batch_size)),
+        f"one training step ({tcfg.batch_size} rays, {mb} microbatches)")
+    train_vs_cpu(trainer)
+    summary = {"rays_per_s": float(np.median(rates)), "psnr_first": first,
+               "psnr_last": last, "loss_last": losses[-1],
+               "budget_per_ray": trainer.rcfg.budget_per_ray,
+               "seconds": total, "profile": prof}
+    return k3, launches, summary
+
+
+def train_vs_cpu(trainer) -> None:
+    """One 256-ray step at full width on the card and on the CPU (plain
+    versions) from the trainer's parameters and state and the same draws:
+    loss, sample counts and every gradient leaf."""
+    dev = trainer.data["directions"].device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = tt.sample_batch(gen, trainer.data, CPU_RAYS)
+    results = []
+    for where in (dev, torch.device("cpu")):
+        move = lambda t: t.detach().to(where)
+        bundle = tree_unflatten(trainer.bundle,
+                                [move(p) for p in tree_leaves(trainer.bundle)])
+        for p in tree_leaves(bundle):
+            p.requires_grad_(True)
+        state = {k: move(v) for k, v in trainer.model_state.items()}
+        data = {k: move(v) for k, v in trainer.data.items()}
+        b = {k: move(v) for k, v in batch.items()}
+        vg = microbatched_value_and_grad(lambda p, bt: tt.loss_fn(
+            p, state, bt, data, trainer.cfg, trainer.rcfg, trainer.tcfg), 1)
+        (loss, aux), grads = vg(bundle, b)
+        results.append((float(loss), {k: float(v) for k, v in aux.items()},
+                        [g.cpu() for g in tree_leaves(grads)]))
+    (lg, ag, gg), (lc, ac, gc) = results
+    worst = max(float((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+                for a, c in zip(gg, gc))
+    print(f"[train] card vs CPU plain, one {CPU_RAYS}-ray step: loss "
+          f"{lg:.6f} vs {lc:.6f}, samples {ag['rm_samples']:.0f} vs "
+          f"{ac['rm_samples']:.0f}, worst gradient leaf max|diff| / max|ref| "
+          f"{worst:.3g} over {len(gg)} leaves (tolerance loss "
+          f"{TRAIN_CPU_LOSS_RTOL} relative, leaves {TRAIN_CPU_GRAD_RTOL})")
+    check(ag["rm_samples"] == ac["rm_samples"],
+          "card and CPU marched different samples")
+    check(abs(lg - lc) <= TRAIN_CPU_LOSS_RTOL * abs(lc), "card vs CPU loss")
+    check(worst <= TRAIN_CPU_GRAD_RTOL, "card vs CPU gradient leaves")
 
 
 def main() -> None:
@@ -339,8 +631,9 @@ def main() -> None:
           f"loop iterations over {-(-n_pix // CHUNK)} chunks; "
           f"{out['total_samples']} samples; launches {launches} (first "
           f"render)")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the render")
+    for name in ("occ_lookup", "brick3_encode_fwd"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "render")
     for key in ("rgb", "depth", "opacity"):
         check(bool(torch.isfinite(out[key]).all()), f"non-finite {key}")
     check(out["rgb"].shape == (n_pix, 3) and out["depth"].shape == (n_pix,),
@@ -352,7 +645,7 @@ def main() -> None:
     print(f"[render] covered share {covered:.4f}, mean opacity "
           f"{float(op.mean()):.4f}, rgb range [{float(out['rgb'].min()):.4f},"
           f" {float(out['rgb'].max()):.4f}]")
-    profile_chunk(lambda: render_rays_chunked(
+    profile_call(lambda: render_rays_chunked(
         params, state, cfg, gate, directions[c0:c0 + CHUNK], pose, rcfg,
         chunk=CHUNK))
 
@@ -373,10 +666,20 @@ def main() -> None:
     check(gpu["total_samples"] == cpu["total_samples"],
           "card and CPU marched different samples")
 
-    # 5. kernels line
+    # 5. the training slice at full width
+    k3_rec, train_launches, summary = train_phase(cfg, dev)
+    print(json.dumps({"train": summary}))
+
+    # 6. kernels line: launches of the training run (this slice's main
+    # path, which runs all three), and of the render
     recs = []
-    for rec in (occ_rec, enc_rec):
-        recs.append({**rec, "launches": launches[rec["name"]], "ok": True})
+    for rec in (occ_rec, enc_rec, k3_rec):
+        name = rec["name"]
+        check(train_launches[name] > 0, f"kernel {name} not launched")
+        recs.append({**rec, "launches": train_launches[name],
+                     "launches_by_path": {"train": train_launches[name],
+                                          "render": launches[name]},
+                     "ok": True})
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

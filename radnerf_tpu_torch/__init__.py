@@ -11,7 +11,9 @@ on CPU tensors a kernel's wrapper takes its plain PyTorch version, on CUDA
 tensors it launches the kernel.
 
 Ported so far: the Rad-NeRF MoE test-time render (`render.ml_render.
-ml_render_test`, union sampling, flat layout, brick3 hash encode).
+ml_render_test`) and one MoE training step with its density-grid update
+(`train.trainer.Trainer`), both with union sampling, the flat layout and
+the brick3 hash encode.
 """
 
 DEFAULT_DEVICE = "cuda"

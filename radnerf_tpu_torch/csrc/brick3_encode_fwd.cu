@@ -7,7 +7,7 @@
 // fw_mode="plain". The table is (L, T, 2) f32 packed to bf16x2 words,
 // viewed as rows of 128 words; row r of level l holds the 5x5x5 lattice
 // cube of one patch, so all 8 trilinear corners of a sample sit in one
-// row, at words lane0 + {0,1,5,6,25,26,30,31}.
+// row, at words lane0 + {0,1,5,6,25,26,30,31} (brick3_common.cuh).
 //
 // What bounds it on Hopper: random reads, one 128-byte stretch of one
 // table row per (sample, level), i.e. memory latency and L2/DRAM sector
@@ -22,30 +22,9 @@
 // _encode_plain) bit for bit: pos = fma(x, scale, 0.5) (the reference's
 // XLA contraction), weights ((wx*wy)*wz), and the 8 products summed in
 // corner order with separate roundings (built with -fmad=false).
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <stdint.h>
 
-#define MAX_LEVELS 32
-#define LANES 128
-
-struct Brick3Levels {
-  float scale[MAX_LEVELS];
-  uint32_t np[MAX_LEVELS];      // patches per axis (dense levels)
-  uint32_t dense[MAX_LEVELS];   // 1: row = px + np*(py + np*pz); 0: hashed
-};
-
-__device__ __forceinline__ uint32_t brick3_row(
-    uint32_t px, uint32_t py, uint32_t pz, uint32_t np, bool dense,
-    int level, uint32_t rows) {
-  if (dense) return (px + np * (py + np * pz)) & (rows - 1u);
-  uint32_t h = (px * 2654435761u) ^ (py * 805459861u) ^ (pz * 3674653429u);
-  h += 0x9E3779B9u * (uint32_t)(level + 1);
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  return h & (rows - 1u);
-}
+#include "brick3_common.cuh"
 
 __global__ void brick3_encode_fwd_kernel(
     const uint32_t* __restrict__ packed, const float* __restrict__ x,
@@ -55,29 +34,12 @@ __global__ void brick3_encode_fwd_kernel(
   if (i >= n * n_levels) return;
   const int64_t s = i / n_levels;
   const int l = (int)(i - s * n_levels);
-  const float scale = lv.scale[l];
+  const Brick3Cell cell = brick3_cell(x, s, l, rows, lv);
+  const uint32_t* w = packed + cell.word0;
 
-  int c[3];
-  float f[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float pos = __fmaf_rn(__ldg(x + 3 * s + d), scale, 0.5f);
-    const float fl = floorf(pos);
-    f[d] = __fsub_rn(pos, fl);
-    c[d] = (int)fl;
-  }
-  // patch coords (floor division by 4) and the cell's base lane
-  const int px = c[0] >> 2, py = c[1] >> 2, pz = c[2] >> 2;
-  const int lane0 =
-      (c[0] - 4 * px) + 5 * (c[1] - 4 * py) + 25 * (c[2] - 4 * pz);
-  const uint32_t row = brick3_row((uint32_t)px, (uint32_t)py, (uint32_t)pz,
-                                  lv.np[l], lv.dense[l] != 0u, l, rows);
-  const uint32_t* w =
-      packed + ((uint64_t)l * rows + row) * LANES + lane0;
-
-  const float wx[2] = {__fsub_rn(1.0f, f[0]), f[0]};
-  const float wy[2] = {__fsub_rn(1.0f, f[1]), f[1]};
-  const float wz[2] = {__fsub_rn(1.0f, f[2]), f[2]};
+  const float wx[2] = {__fsub_rn(1.0f, cell.f[0]), cell.f[0]};
+  const float wy[2] = {__fsub_rn(1.0f, cell.f[1]), cell.f[1]};
+  const float wz[2] = {__fsub_rn(1.0f, cell.f[2]), cell.f[2]};
   float a0 = 0.0f, a1 = 0.0f;
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz) {
@@ -101,13 +63,9 @@ extern "C" int brick3_encode_fwd(
     const void* packed, const void* x, void* out, int64_t n, int n_levels,
     int rows_per_level, const float* scales, const int* nps,
     const int* dense, void* stream) {
-  if (n_levels < 1 || n_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
   Brick3Levels lv;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.scale[l] = scales[l];
-    lv.np[l] = (uint32_t)nps[l];
-    lv.dense[l] = (uint32_t)dense[l];
-  }
+  const int err = brick3_levels(&lv, n_levels, scales, nps, dense);
+  if (err) return err;
   const int64_t total = n * n_levels;
   if (total > 0) {
     const int threads = 256;

@@ -4,7 +4,8 @@ Each kernel is one source in `csrc/` with a plain C entry point. It is
 compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
 `_build/` (git-ignored) at first use, and called through `ctypes`: no
 PyTorch headers, so a build takes seconds. A library's file name carries
-a hash of its source and flags, so an edited source is rebuilt.
+a hash of its source, the shared headers (`csrc/*.cuh`) and the flags,
+so an edited source or header is rebuilt.
 
 Every entry point takes raw device pointers and the CUDA stream, launches
 on that stream without synchronising, and returns `cudaGetLastError()`;
@@ -50,6 +51,11 @@ KERNELS = {
         "brick3_encode_fwd.cu",
         (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P),
     ),
+    # (x, g, out, n, n_levels, rows_per_level, scales, nps, dense, stream)
+    "brick3_table_grad": (
+        "brick3_table_grad.cu",
+        (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P),
+    ),
     # (xyz, dt, occ, out, n, cascades, grid_size, scale, stream)
     "occ_lookup": (
         "occ_lookup.cu",
@@ -83,6 +89,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / KERNELS[name][0]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -68,6 +68,24 @@ def init_stacked_mlp(
     }
 
 
+class _Logistic(torch.autograd.Function):
+    """The logistic as XLA evaluates it: exp, add and divide, each rounded
+    to the input dtype (torch.sigmoid rounds once, which differs by one
+    bf16 ulp on a third of the values). Its gradient is JAX's rule,
+    g * (s * (1 - s)), which stays finite where exp(-h) overflows."""
+
+    @staticmethod
+    def forward(ctx, h):
+        s = 1.0 / (1.0 + torch.exp(-h))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
 def apply_mlp(
     params: dict,
     x: torch.Tensor,
@@ -88,10 +106,12 @@ def apply_mlp(
         if i < n - 1:
             h = torch.relu(h)
     if out_act == "sigmoid":
-        # the logistic as XLA evaluates it: exp, add and divide each
-        # rounded to the compute dtype (torch.sigmoid rounds once, which
-        # differs by one bf16 ulp on a third of the values)
-        h = 1.0 / (1.0 + torch.exp(-h))
+        h = _Logistic.apply(h)
     elif out_act == "exp":
         h = torch.exp(h)
     return h
+
+
+def slice_stacked(params: dict, ind: int) -> dict:
+    """One expert's weights from a stacked MLP."""
+    return {k: [a[ind] for a in v] for k, v in params.items()}

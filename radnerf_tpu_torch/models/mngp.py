@@ -12,9 +12,12 @@ import torch
 
 from .. import DEFAULT_DEVICE
 from ..ops.hashgrid import init_hashgrid_table
-from ..ops.hashgrid_brick3 import hashgrid_encode_brick3_fwd_impl
-from .mlp import init_stacked_mlp
-from .ngp import NGPConfig
+from ..ops.hashgrid_brick3 import (
+    hashgrid_encode_brick3, hashgrid_encode_brick3_fwd_impl,
+)
+from ..ops.trunc_exp import trunc_exp
+from .mlp import apply_mlp, init_stacked_mlp, slice_stacked
+from .ngp import NGPConfig, update_density_grid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +78,9 @@ def _encode(params, state, cfg: MNGPConfig, x: torch.Tensor,
     """World positions (N, 3) -> (N, L*2) hash features.
 
     `packed` is the table already packed by pack_brick3_table (callers
-    that encode many batches pack once)."""
+    that encode many batches pack once). A table that requires a gradient
+    goes through the differentiable encode (its backward is the brick3
+    table-gradient kernel)."""
     _require_shared(cfg)
     impl = impl or cfg.hash_impl
     if impl not in _BRICK3_MODES:
@@ -92,7 +97,54 @@ def _encode(params, state, cfg: MNGPConfig, x: torch.Tensor,
         )
     xn = (x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
     xn = xn.clamp(0.0, 1.0)
+    table = params["hash_table"]
+    if table.requires_grad and torch.is_grad_enabled():
+        return hashgrid_encode_brick3(table, xn, cfg.hash,
+                                      _BRICK3_MODES[impl], packed=packed)
     return hashgrid_encode_brick3_fwd_impl(
-        params["hash_table"], xn, cfg.hash, _BRICK3_MODES[impl],
-        packed=packed,
+        table, xn, cfg.hash, _BRICK3_MODES[impl], packed=packed,
     )
+
+
+def mngp_density_expert(params, state, cfg: MNGPConfig, x: torch.Tensor,
+                        ind: int, return_feat: bool = False,
+                        impl: str | None = None):
+    """sigma(x) of expert `ind` (and its geo features if asked)."""
+    feat = _encode(params, state, cfg, x, impl=impl)
+    h = apply_mlp(slice_stacked(params["geo"], ind), feat,
+                  compute_dtype=cfg.cdtype)
+    sigmas = trunc_exp(h[:, 0])
+    if return_feat:
+        return sigmas, h[:, 1:]
+    return sigmas
+
+
+@torch.no_grad()
+def mngp_update_density_grids(
+    params: dict,
+    state: dict,
+    cfg: MNGPConfig,
+    gen: torch.Generator | None,
+    density_threshold: float,
+    warmup: bool,
+    decay: float = 0.95,
+    draws: list | None = None,
+) -> dict:
+    """Update all K per-expert grids, one expert after another; the
+    density pass takes the 'brick3_plain' forward (grid cells are
+    spatially incoherent). `draws[k]` are expert k's explicit draws (see
+    update_density_grid)."""
+    grids, occs = [], []
+    for k in range(cfg.n_experts):
+        sub_state = {**state, "density_grid": state["density_grid"][k],
+                     "occ": state["occ"][k]}
+        new = update_density_grid(
+            params, sub_state, cfg, gen, density_threshold, warmup,
+            lambda x, k=k: mngp_density_expert(params, state, cfg, x, k,
+                                               impl="brick3_plain"),
+            decay, None if draws is None else draws[k],
+        )
+        grids.append(new["density_grid"])
+        occs.append(new["occ"])
+    return {**state, "density_grid": torch.stack(grids),
+            "occ": torch.stack(occs)}

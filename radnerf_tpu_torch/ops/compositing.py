@@ -1,5 +1,7 @@
-"""Resumable volume compositing on the flat sample layout (twin of the
-test-time half of radnerf_tpu/ops/compositing.py).
+"""Volume compositing on the flat sample layout (twin of the flat-layout
+half of radnerf_tpu/ops/compositing.py): the training compositor, whose
+backward is autograd through the segmented scans, and the resumable
+test-time compositor.
 
 Per-ray sums are segmented scans over the ray-contiguous sample buffer.
 They never sum across a segment boundary: a global cumsum minus the
@@ -87,6 +89,61 @@ def segmented_cumsum(v: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
 def segmented_cummax(v: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
     """Inclusive cumulative max that resets at segment starts."""
     return _segmented_scan(v, seg_start, torch.maximum, float("-inf"))
+
+
+def composite_train_flat(
+    sigmas: torch.Tensor,
+    rgbs: torch.Tensor,
+    deltas: torch.Tensor,
+    ts: torch.Tensor,
+    ray_id: torch.Tensor,
+    offsets: torch.Tensor,
+    cap: torch.Tensor,
+    valid: torch.Tensor,
+    T_threshold: float = 1e-4,
+) -> dict:
+    """Training compositing on the flat (static-CSR) layout: per-ray
+    transmittance and outputs by segmented scans over the ray-sorted
+    buffer. A sample whose exclusive transmittance has fallen to
+    T_threshold contributes nothing and passes no gradient.
+
+    Shapes as the reference: sigmas (B,), rgbs (B, 3), valid (B,); with a
+    leading expert axis (sigmas (K, B), rgbs (K, B, 3), valid (K, B)) the
+    K experts share one set of segmented scans. deltas, ts, ray_id,
+    offsets and cap are shared. Returns opacity, depth (.., N), rgb
+    (.., N, 3), ws (.., B) and vr_samples (.., N) int32."""
+    single = sigmas.dim() == 1
+    if single:
+        sigmas, rgbs, valid = sigmas[None], rgbs[None], valid[None]
+    E, B = sigmas.shape
+    rid = ray_id.long()
+    seg_start = torch.arange(B, device=sigmas.device) == offsets[rid]
+    sd = torch.where(valid, sigmas * deltas, 0.0)             # (E, B)
+    within_incl = segmented_cumsum(sd.T, seg_start).T
+    t_excl = torch.exp(-(within_incl - sd))
+    alpha = 1.0 - torch.exp(-sd)
+    w = alpha * t_excl * (t_excl > T_threshold)
+
+    # rays pushed wholly past the buffer end contribute nothing; a
+    # truncated ray reads its sum at B - 1 (the samples that fit)
+    present = (cap > 0) & (offsets < B)
+    ends = torch.where(present, offsets + cap - 1, 0).clamp_max(B - 1).long()
+    # one segmented scan for every per-ray sum: columns
+    # [w | w*ts | w*r | w*g | w*b | (w > 0)], each (E,)
+    cols = torch.cat([
+        w, w * ts, (w[..., None] * rgbs).permute(2, 0, 1).reshape(3 * E, B),
+        (w > 0).to(w.dtype),
+    ]).T
+    seg = segmented_cumsum(cols, seg_start)[ends]             # (N, 6E)
+    seg = torch.where(present[:, None], seg, 0.0).T.reshape(6, E, -1)
+    out = {
+        "opacity": seg[0],
+        "depth": seg[1],
+        "rgb": seg[2:5].permute(1, 2, 0),
+        "ws": w,
+        "vr_samples": seg[5].round().to(torch.int32),
+    }
+    return {k: v[0] for k, v in out.items()} if single else out
 
 
 def composite_test_flat(

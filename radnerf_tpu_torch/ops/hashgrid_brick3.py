@@ -16,8 +16,15 @@ decodes the same in the other.
 
 `hashgrid_encode_brick3_fwd_impl` launches the CUDA kernel
 `csrc/brick3_encode_fwd.cu` on CUDA tensors and runs `_encode_plain`, its
-plain PyTorch twin, on CPU tensors. The backward (table gradient) comes
-with the training slice.
+plain PyTorch twin, on CPU tensors. `hashgrid_table_grad_brick3` (the
+backward: dL/dtable) launches `csrc/brick3_table_grad.cu` on CUDA tensors
+and runs `_table_grad_plain` on CPU tensors. `hashgrid_encode_brick3` is
+the differentiable encode: its backward is the table gradient.
+
+The backward is the exact f32 gradient (the reference's `exact=True`
+path). The reference's default backward quantizes the fractions to 10
+bits and g to bf16 before its TPU sort and runs bf16 matmul operands;
+none of that exists here.
 """
 
 from __future__ import annotations
@@ -272,3 +279,108 @@ def hashgrid_encode_brick3_fwd_impl(
     if x.device.type != "cpu":
         raise ValueError(f"no brick3 encode for device {x.device}")
     return _encode_plain(packed, x, cfg)
+
+
+def _corner_terms(x: torch.Tensor, cfg: HashGridConfig):
+    """Flat (L*T) table entry and trilinear weight of every corner of
+    every (sample, level): two (L, 8, N) tensors (int64, float32), with
+    the forward's addressing and weights."""
+    L = cfg.n_levels
+    T = cfg.table_size
+    R = T // LANES
+    xi, yi, zi, frac = _geometry(x, cfg, list(range(L)))
+    idx, wts = [], []
+    for a in brick3_addrs(cfg):
+        px, py, pz, lane0 = _patch_lane3(
+            xi[a.level], yi[a.level], zi[a.level]
+        )
+        base = a.level * T + _brick3_row(a, px, py, pz, R) * LANES + lane0
+        idx.append(torch.stack([base + off for off in _OFFS3]))
+        wts.append(torch.stack(_corner_weights(frac[a.level])))
+    return torch.stack(idx), torch.stack(wts)
+
+
+def _table_grad_plain(x: torch.Tensor, g: torch.Tensor,
+                      cfg: HashGridConfig) -> torch.Tensor:
+    """Plain PyTorch twin of the table-gradient kernel: `index_add_` of
+    w_corner * g_f (one f32 product each, as the kernel) over the 8
+    corners of every (sample, level). Returns (L, T, 2) f32."""
+    L, T = cfg.n_levels, cfg.table_size
+    idx, w = _corner_terms(x, cfg)                       # (L, 8, N)
+    gl = g.reshape(-1, L, 2).permute(1, 0, 2)            # (L, N, 2)
+    vals = w[..., None] * gl[:, None]                    # (L, 8, N, 2)
+    out = torch.zeros((L * T, 2), dtype=torch.float32, device=x.device)
+    out.index_add_(0, idx.reshape(-1), vals.reshape(-1, 2))
+    return out.reshape(L, T, 2)
+
+
+def _table_grad_cuda(x: torch.Tensor, g: torch.Tensor,
+                     cfg: HashGridConfig) -> torch.Tensor:
+    L, T = cfg.n_levels, cfg.table_size
+    R = T // LANES
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError(f"x must be (N, 3) float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if g.shape != (x.shape[0], 2 * L):
+        raise ValueError(f"g must be ({x.shape[0]}, {2 * L}), got "
+                         f"{tuple(g.shape)}")
+    if not (x.is_cuda and g.device == x.device):
+        raise ValueError("x and g must be on the same CUDA device")
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("x and g must be contiguous")
+    if not 1 <= L <= 32:
+        raise ValueError("the kernel takes 1 to 32 levels")
+    out = torch.zeros((L, T, 2), dtype=torch.float32, device=x.device)
+    scales, nps, dense = _level_params(cfg)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.launch(
+            "brick3_table_grad", x.data_ptr(), g.data_ptr(),
+            out.data_ptr(), x.shape[0], L, R, scales.ctypes.data,
+            nps.ctypes.data, dense.ctypes.data, stream,
+        )
+    return out
+
+
+def hashgrid_table_grad_brick3(
+    x: torch.Tensor, g: torch.Tensor, cfg: HashGridConfig
+) -> torch.Tensor:
+    """dL/dtable of the brick3 encode: x (N, 3) positions in [0, 1]^3, g
+    (N, L*2) float32 gradient of its output -> (L, T, 2) float32."""
+    if g.dtype != torch.float32:
+        raise ValueError(f"g must be float32, got {g.dtype}")
+    if x.is_cuda:
+        return _table_grad_cuda(x, g, cfg)
+    if x.device.type != "cpu":
+        raise ValueError(f"no brick3 table gradient for device {x.device}")
+    return _table_grad_plain(x, g, cfg)
+
+
+class _EncodeBrick3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, x, cfg, fw_mode, packed):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x)
+        return hashgrid_encode_brick3_fwd_impl(table, x, cfg, fw_mode,
+                                               packed=packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        dtable = hashgrid_table_grad_brick3(
+            x, g.to(torch.float32).contiguous(), ctx.cfg)
+        return dtable, None, None, None, None
+
+
+def hashgrid_encode_brick3(
+    table: torch.Tensor,
+    x: torch.Tensor,
+    cfg: HashGridConfig,
+    fw_mode: str = "runs",
+    packed: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Differentiable brick3 encode: the forward of
+    `hashgrid_encode_brick3_fwd_impl`, the backward
+    `hashgrid_table_grad_brick3`. No gradient reaches x (the reference's
+    ray-marcher position gradients are never consumed)."""
+    return _EncodeBrick3.apply(table, x.detach(), cfg, fw_mode, packed)

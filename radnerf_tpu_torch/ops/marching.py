@@ -1,5 +1,6 @@
 """Occupancy-grid ray marching on the closed-form sample lattice (twin of
-the test-time half of radnerf_tpu/ops/marching.py).
+the flat-layout half of radnerf_tpu/ops/marching.py: the test-time march
+and the training-time union march).
 
 The CUDA marcher's step schedule t_{k+1} = t_k + clamp(t_k * f, dt_min,
 dt_max) is a deterministic lattice of the start t, so a block of K
@@ -332,3 +333,61 @@ def march_rays_test_flat(
     new_cursor = torch.where(alive, new_cursor, cursor)
     return {**m, "new_cursor": new_cursor, "kept": kept,
             "consumed": torch.where(alive, consumed, 0)}
+
+
+def _lattice_candidates(rays_o, rays_d, t1, t2, cfg: MarchConfig, noise):
+    """Candidate generation: start t1 jittered by noise * dt(t1), the
+    closed-form lattice, per-candidate dt and xyz, and the in-range mask.
+    Returns (t, dt, xyz, in_range), all (N, K[, 3])."""
+    K = cfg.k_candidates
+    t1 = t1.to(torch.float32)
+    if noise is not None:
+        t1 = torch.where(t1 >= 0, fma32(calc_dt(t1, cfg), noise, t1), t1)
+    k = torch.arange(K, dtype=torch.int32, device=t1.device)[None, :]
+    t = sample_lattice(t1[:, None], k, cfg)
+    dt = calc_dt(t, cfg)
+    in_range = (t1[:, None] >= 0) & (t >= 0) & (t < t2[:, None])
+    xyz = fma32(t[..., None], rays_d[:, None, :], rays_o[:, None, :])
+    return t, dt, xyz, in_range
+
+
+def march_rays_union_flat(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    t1: torch.Tensor,
+    t2: torch.Tensor,
+    occ_grids: torch.Tensor,
+    cfg: MarchConfig,
+    noise: torch.Tensor | None = None,
+    budget_per_ray: int = 64,
+    cap_scale: int = 1,
+) -> tuple[dict, torch.Tensor]:
+    """Training-time march against K occupancy grids at once (MoE union
+    sampling): ONE march against the union grid with a shared start
+    jitter, then each expert's membership of the compacted samples.
+
+    The static budget B = N * budget_per_ray and the per-ray cap
+    cap_scale * cfg.samples_per_ray apply to the union stream, with the
+    reference's front-biased truncation. Returns (march_dict, member):
+    the flat march dict over the union and member (K, B) bool."""
+    t, dt, xyz, in_range = _lattice_candidates(
+        rays_o, rays_d, t1, t2, cfg, noise
+    )
+    occ_union = occ_grids.any(dim=0).contiguous()
+    keep = in_range & occupancy_lookup_bricks(xyz, dt, occ_union, cfg)
+    cfg_u = dataclasses.replace(
+        cfg, samples_per_ray=cfg.samples_per_ray * cap_scale
+    )
+    m, flat_sel = _compact_flat_from_keep(t, dt, keep, cfg_u, budget_per_ray)
+    if cfg.exp_step_factor == 0.0:
+        # constant-dt lattice: positions recomputed from the compacted ts
+        sel_dt = torch.full_like(m["ts"], cfg.dt_min)
+        rid = m["ray_id"].long()
+        sel_xyz = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
+    else:
+        sel_dt = dt.reshape(-1)[flat_sel.long()]
+        sel_xyz = xyz.reshape(-1, 3)[flat_sel.long()]
+    member = torch.stack([
+        occupancy_lookup(sel_xyz, sel_dt, occ, cfg) for occ in occ_grids
+    ]) & m["valid"][None, :]
+    return m, member

@@ -1,13 +1,14 @@
-"""Rad-NeRF MoE test-time render (twin of the test half of
-radnerf_tpu/render/ml_render.py).
+"""Rad-NeRF MoE render, training and test time (twin of the union-flat
+paths of radnerf_tpu/render/ml_render.py).
 
 Gate the rays, render the K sub-NeRFs, gate-compose. With a shared
-encoder, union sampling and the flat test layout, every loop iteration
-marches ONCE against the union of the experts' occupancy grids and
-hash-encodes ONCE; each expert masks sigma to its own membership (a
-non-member sample has alpha 0, as if never marched) and keeps its own
-resumable compositing carry. The reference's `lax.while_loop` is a Python
-loop whose condition is read back from the device once per iteration.
+encoder, union sampling and the flat layout, the rays are marched ONCE
+against the union of the experts' occupancy grids and hash-encoded ONCE;
+each expert masks sigma to its own membership (a non-member sample has
+alpha 0, as if never marched). Training composites the one union buffer
+per expert; test time loops, each expert keeping its own resumable
+compositing carry. The reference's `lax.while_loop` is a Python loop
+whose condition is read back from the device once per iteration.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ from ..models.gates import apply_ray_gate
 from ..models.mlp import apply_mlp
 from ..models.mngp import MNGPConfig, _encode
 from ..models.ngp import scene_center_half
-from ..ops.compositing import composite_test_flat
+from ..ops.compositing import composite_test_flat, composite_train_flat
 from ..ops.fma import fma32
 from ..ops.hashgrid_brick3 import pack_brick3_table
 from ..ops.intersection import scene_near_far
-from ..ops.marching import march_rays_test_flat, occupancy_lookup
+from ..ops.marching import (
+    march_rays_test_flat, march_rays_union_flat, occupancy_lookup,
+)
 from ..ops.sh import sh_encode_dir
 from ..ops.trunc_exp import trunc_exp
 from .render import NEAR_DISTANCE, RenderConfig, background_color
@@ -35,6 +38,118 @@ def _gate_input(rays_o, rays_d, imgs_d, gate_type: str) -> torch.Tensor:
     if gate_type == "image":
         return torch.cat([rays_o, imgs_d], dim=1)
     return torch.cat([rays_o, rays_d], dim=1)
+
+
+def _expert_samples_union_flat(
+    params, state, cfg: MNGPConfig, rays_o, rays_d, rcfg: RenderConfig,
+    noise: torch.Tensor, gen: torch.Generator | None = None,
+) -> dict:
+    """Union-of-experts training render: ONE march and ONE hash encode for
+    all K experts, then per-expert MLPs and compositing of the shared
+    buffer with sigma masked to each expert's membership (identical to
+    each expert's own march, up to the union budgeting of
+    march_rays_union_flat). `noise` (N,) is the start jitter in [0, 1);
+    `gen` draws the random backgrounds (rcfg.random_bg)."""
+    K = cfg.n_experts
+    dev = rays_o.device
+    center, half = scene_center_half(state)
+    t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
+    mcfg = rcfg.march(cfg)
+    d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
+    m, member = march_rays_union_flat(
+        rays_o, rays_d, t1, t2, state["occ"], mcfg, noise,
+        budget_per_ray=max(1, round(
+            rcfg.budget_per_ray * (rcfg.union_budget_factor or K))),
+        cap_scale=K,   # the per-ray cap stays expert-equivalent
+    )
+    rid = m["ray_id"].long()
+    xyz = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])   # (B, 3)
+
+    feat = _encode(params, state, cfg, xyz)                   # ONCE
+    h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
+    sigmas = torch.where(member, trunc_exp(h[..., 0]), 0.0)
+    rgb_in = torch.cat(
+        [d_enc_ray[rid][None].expand(K, -1, -1), h[..., 1:]], dim=-1
+    )
+    rgbs = apply_mlp(
+        params["rgb"], rgb_in, out_act=cfg.rgb_act.lower(),
+        compute_dtype=cfg.cdtype,
+    ).to(torch.float32)                                       # (K, B, 3)
+    out = composite_train_flat(
+        sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"], m["offsets"],
+        m["cap"], member, T_threshold=rcfg.T_threshold,
+    )
+    bgs = torch.stack([background_color(rcfg, gen, dev) for _ in range(K)])
+    B = m["ts"].shape[0]
+
+    def rep(a):  # shared union arrays -> per-expert (K, ...) interface
+        return a[None].expand((K,) + a.shape)
+
+    return {
+        "rgb": out["rgb"] + bgs[:, None, :] * (1.0 - out["opacity"][..., None]),
+        "depth": out["depth"],
+        "opacity": out["opacity"],
+        "ws": out["ws"],
+        "ts": rep(m["ts"]),
+        "deltas": rep(m["deltas"]),
+        "valid": member,
+        "ray_id": rep(m["ray_id"]),
+        "offsets": rep(m["offsets"]),
+        "cap": rep(m["cap"]),
+        "n_samples": rep(m["n_samples"]),
+        "rm_samples": member.sum(dtype=torch.int32),
+        "budget_util": m["total"].to(torch.float32) / B,
+        "total_samples": out["vr_samples"].sum(),
+    }
+
+
+def ml_render_train(
+    params: dict,
+    state: dict,
+    cfg: MNGPConfig,
+    gate_params: dict,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    imgs_d: torch.Tensor,
+    rcfg: RenderConfig,
+    gate_type: str = "ray",
+    noise: torch.Tensor | None = None,
+    gen: torch.Generator | None = None,
+) -> dict:
+    """Training-time MoE render of (N, 3) rays, differentiable in params
+    and gate_params. `noise` (N,) is the per-ray start jitter in [0, 1),
+    drawn from `gen` when not given. Returns rgb (N, 3), depth (N, K),
+    opacity (N,), gating_code (N, K), gating_importance (K,),
+    independent_rgbs (K, N, 3), the per-expert flat buffers (ws, deltas,
+    ts, valid, ray_id, offsets, cap), rm_samples, budget_util and
+    total_samples."""
+    if not (cfg.shared_encoder and rcfg.union_sampling
+            and rcfg.layout == "flat"):
+        raise NotImplementedError(
+            "the port trains shared_encoder + union_sampling + "
+            "layout='flat' only; the per-expert, unshared and dense "
+            "training paths are queued in ROADMAP.md"
+        )
+    gate, importance, _ = apply_ray_gate(
+        gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
+        compute_dtype=cfg.cdtype,
+    )
+    if noise is None:
+        noise = torch.rand(rays_o.shape[0], generator=gen,
+                           device=rays_o.device)
+    res = _expert_samples_union_flat(params, state, cfg, rays_o, rays_d,
+                                     rcfg, noise, gen)
+    return {
+        "rgb": torch.einsum("nk,knc->nc", gate, res["rgb"]),
+        "depth": res["depth"].T,
+        "opacity": torch.einsum("nk,kn->n", gate, res["opacity"]),
+        "gating_code": gate,
+        "gating_importance": importance,
+        "independent_rgbs": res["rgb"],
+        **{k: res[k] for k in ("ws", "deltas", "ts", "valid", "ray_id",
+                               "offsets", "cap", "rm_samples",
+                               "budget_util", "total_samples")},
+    }
 
 
 def _ml_test_union_flat(
@@ -109,7 +224,7 @@ def _ml_test_union_flat(
         total_samples = total_samples + m["consumed"].sum()
         i += 1
 
-    rgb_bg = background_color(rcfg, None, device=dev)
+    rgb_bg = background_color(rcfg, None, dev)
     return {
         "rgb": acc["rgb"] + rgb_bg * (1.0 - acc["opacity"][..., None]),
         "depth": acc["depth"],

@@ -15,9 +15,11 @@ NEAR_DISTANCE = 0.01
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static render-time knobs of the test-time render; the defaults
-    (128 / 24 / 512 at chunk 4096) are the reference's joint optimum for
-    the flat layout."""
+    """Static render knobs. Test time: the defaults (128 / 24 / 512 at
+    chunk 4096) are the reference's joint optimum for the flat layout.
+    Training: the flat layout's static budget B = N * budget_per_ray,
+    scaled for the MoE union stream by union_budget_factor (0.0 = the
+    number of experts)."""
 
     exp_step_factor: float = 0.0       # 1/256 when scale > 0.5
     T_threshold: float = 1e-4
@@ -28,9 +30,10 @@ class RenderConfig:
     test_k_block: int = 512            # lattice candidates examined per iter
     test_layout: str = "flat"
     test_budget_per_ray: int = 24
+    layout: str = "dense"              # training: "dense" (N, S) | "flat"
+    budget_per_ray: int = 64           # flat layout: B = N * budget_per_ray
     union_sampling: bool = True
-    # the training-only fields (layout, budget_per_ray,
-    # union_budget_factor) come with the training slice
+    union_budget_factor: float = 0.0
 
     def march(self, cfg) -> MarchConfig:
         return MarchConfig(
@@ -46,12 +49,12 @@ class RenderConfig:
 def background_color(
     rcfg: RenderConfig,
     gen: torch.Generator | None,
-    device=None,
+    device,
 ) -> torch.Tensor:
     """White for synthetic scenes (exp_step_factor == 0), else black, or a
-    random color drawn from `gen` when rcfg.random_bg."""
+    random color drawn from `gen` when rcfg.random_bg; on `device`."""
     if rcfg.exp_step_factor == 0.0:
         return torch.ones(3, device=device)
     if rcfg.random_bg and gen is not None:
-        return torch.rand(3, generator=gen).to(device)
+        return torch.rand(3, generator=gen, device=gen.device).to(device)
     return torch.zeros(3, device=device)
