@@ -8,11 +8,12 @@ Phases (any failure is an uncaught error and a nonzero exit; there is no
 CPU fallback):
   1. device: the card's name and power limit, from nvidia-smi;
   2. build: compile every CUDA kernel of the path from csrc/ (nvcc, sm_90a);
-  3. kernels vs their plain PyTorch versions on the card, at the shapes of
-     the render's first loop iteration on a 4096-ray chunk: the candidate
-     occupancy on 4096 x 512 candidates (must be equal), the brick3 encode
-     on the iteration's 98,304 marched samples at L=16, T=2^19 (within one
-     bf16 ulp); median times of kernel, plain version and library call;
+  3. kernels 1 and 2 vs their plain PyTorch versions on the card, at the
+     shapes of the render's first loop iteration on a 4096-ray chunk: the
+     candidate occupancy on 4096 x 512 candidates (must be equal), the
+     brick3 encode on the iteration's 98,304 marched samples at L=16,
+     T=2^19 (within one bf16 ulp); median times of kernel, plain version
+     and library call;
   4. the slice at full width: MNGP zoo=2 (scale 0.5, T=2^19, G=128, bf16,
      brick3) from torch.Generator seed 0, expert 0 occupying a solid
      0.3-radius sphere and expert 1 its +x half, renders a 400x400 pinhole
@@ -26,13 +27,16 @@ CPU fallback):
      batch 8192 in 4 microbatches of 2048 rays, budget 64, lr 1e-2, cv
      1e-2, depth-mutual 5e-3) on an analytic emissive 0.3-sphere: a ray
      store of 32 cameras x 64x64 pixels whose target colours the port's
-     own march and compositor render (no dataset); then the brick3
-     table-gradient kernel against its plain version (and one
-     index_add_ call) on one microbatch's marched samples; then
+     own march and compositor render (no dataset); then all three
+     kernels against their plain versions at one 2048-ray microbatch's
+     shapes (the union march's 2048 x 1024 lattice candidates, its
+     marched samples, the table gradient of a random output gradient),
+     and the encode on one warmup grid update's 2,097,152 cells; then
      TRAIN_STEPS steps of Trainer.fit_steps (grid updates every 16 steps,
      every cell below step 256, the adaptive budget), launch counts reset
      just before and read just after; loss and PSNR at intervals, train
-     rays/s (median over the steps after the first 16), one step
+     rays/s (median over the steps after the first 16); the microbatch
+     checks again at the trained grids and the grown budget; one step
      profiled; then one 256-ray step on the card and on the CPU (plain
      versions) from the same parameters and draws, loss and every
      gradient leaf compared;
@@ -52,7 +56,9 @@ import torch
 from radnerf_tpu_torch import kernels
 from radnerf_tpu_torch.models.gates import init_ray_gate
 from radnerf_tpu_torch.models.mngp import MNGPConfig, init_mngp, init_mngp_state
-from radnerf_tpu_torch.models.ngp import scene_center_half
+from radnerf_tpu_torch.models.ngp import (
+    all_cell_coords, cell_world_positions, scene_center_half,
+)
 from radnerf_tpu_torch.ops.compositing import composite_train_flat
 from radnerf_tpu_torch.ops.fma import fma32
 from radnerf_tpu_torch.ops.hashgrid_brick3 import (
@@ -62,8 +68,9 @@ from radnerf_tpu_torch.ops.hashgrid_brick3 import (
 )
 from radnerf_tpu_torch.ops.intersection import scene_near_far
 from radnerf_tpu_torch.ops.marching import (
-    _occ_flat_index, calc_dt, march_rays_test_flat, march_rays_union_flat,
-    occupancy_lookup, occupancy_lookup_bricks, sample_lattice,
+    _lattice_candidates, _occ_flat_index, calc_dt, march_rays_test_flat,
+    march_rays_union_flat, occupancy_lookup, occupancy_lookup_bricks,
+    sample_lattice,
 )
 from radnerf_tpu_torch.parallel.step import (
     microbatched_value_and_grad, tree_leaves, tree_unflatten,
@@ -284,33 +291,76 @@ def render_sphere(store: dict, cfg: MNGPConfig, chunk: int = 4096):
     return torch.cat(out).reshape(n_img, n_pix, 3)
 
 
-def table_grad_check(trainer, hcfg) -> dict:
-    """Kernel 3 against its plain version (and one index_add_ call) at one
-    microbatch's shapes: the 2048 x 64 slots of a union march of the
-    trainer's first batch slice, with a random output gradient on the
-    valid slots (zero elsewhere, as the path gives)."""
-    dev = trainer.data["directions"].device
-    gen = torch.Generator(device=dev).manual_seed(7)
-    mb = trainer.tcfg.batch_size // trainer.tcfg.n_microbatch
-    batch = tt.sample_batch(gen, trainer.data, mb)
-    poses = trainer.data["poses"][batch["img_idxs"]]
-    rays_o, rays_d = get_rays(trainer.data["directions"][batch["pix_idxs"]],
-                              poses)
-    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
-    state = trainer.model_state
-    center, half = scene_center_half(state)
-    t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
-    m, _ = march_rays_union_flat(
-        rays_o, rays_d, t1, t2, state["occ"], trainer.rcfg.march(trainer.cfg),
-        batch["noise"], budget_per_ray=trainer.rcfg.budget_per_ray,
-        cap_scale=trainer.cfg.n_experts)
-    rid = m["ray_id"].long()
-    x = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
-    xn = ((x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
-          ).clamp(0.0, 1.0).contiguous()
+def encode_check(table, packed, xn, hcfg, at: str, n_valid: int,
+                 plain_reps: int = 50) -> dict:
+    """Kernel 1 against its plain version on positions xn (within one
+    bf16 ulp), with the times of both and the bound."""
+    enc_k = hashgrid_encode_brick3_fwd_impl(table, xn, hcfg, packed=packed)
+    enc_p = _encode_plain(packed, xn, hcfg)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(enc_k, enc_p)
+    check(ulps <= 1.0, f"brick3_encode_fwd kernel vs plain at {at}: {ulps} "
+                       "ulp")
+    n, L = xn.shape[0], hcfg.n_levels
+    rec = {
+        "at": at, "check": "<= 1 bf16 ulp",
+        "max_abs_err": float((enc_k.float() - enc_p.float()).abs().max()),
+        "max_ulp": ulps,
+        "exact_share": float((enc_k == enc_p).float().mean()),
+        "shape": f"{n} samples ({n_valid} valid), L={L}, "
+                 f"T=2^{hcfg.log2_table_size}",
+        "ms": median_ms(lambda: hashgrid_encode_brick3_fwd_impl(
+            table, xn, hcfg, packed=packed)),
+        "plain_ms": median_ms(lambda: _encode_plain(packed, xn, hcfg),
+                              reps=plain_reps, warmup=min(5, plain_reps)),
+        "library_ms": None,
+    }
+    # x in, 2 bf16 out per (sample, level), the distinct table words read;
+    # ~60 f32 operations per (sample, level) (3 fma-floor-sub, 8 weights,
+    # 16 multiply-adds)
+    rec.update(bound(n * 12 + n * L * 4 + brick3_words_needed(xn, hcfg) * 4,
+                     n * L * 60))
+    return rec
+
+
+def occ_check(xyz, dt, occ_union, mcfg, at: str) -> dict:
+    """Kernel 2 against its plain version on candidates (xyz, dt) (must be
+    equal), with the times of both, of one indexing call, and the bound."""
+    occ_k = occupancy_lookup_bricks(xyz, dt, occ_union, mcfg)
+    occ_p = occupancy_lookup(xyz, dt, occ_union, mcfg)
+    torch.cuda.synchronize()
+    check(torch.equal(occ_k, occ_p), f"occ_lookup kernel != plain version "
+                                     f"at {at}")
+    flat = _occ_flat_index(xyz, dt, mcfg)
+    occ_flat = occ_union.reshape(-1)
+    n_cand = dt.numel()
+    rec = {
+        "at": at, "check": "exact",
+        "max_abs_err": float((occ_k.float() - occ_p.float()).abs().max()),
+        "shape": f"{tuple(dt.shape)} candidates, {tuple(occ_union.shape)} "
+                 f"grid, {int(occ_k.sum())} occupied",
+        "ms": median_ms(lambda: occupancy_lookup_bricks(xyz, dt, occ_union,
+                                                        mcfg)),
+        "plain_ms": median_ms(lambda: occupancy_lookup(xyz, dt, occ_union,
+                                                       mcfg)),
+        # the advanced-indexing gather of occupancy_lookup, given the
+        # flat cell indices
+        "library_ms": median_ms(lambda: occ_flat[flat]),
+    }
+    # xyz, dt in and a bool out per candidate, one byte per distinct cell;
+    # ~24 f32 operations per candidate (abs/max, frexp, 3 x div-add-mul-
+    # mul-clamp)
+    rec.update(bound(n_cand * (12 + 4 + 1) + int(torch.unique(flat).numel()),
+                     n_cand * 24))
+    return rec
+
+
+def table_grad_check(xn, g, hcfg, at: str, n_valid: int) -> dict:
+    """Kernel 3 against its plain version (within its summation-order
+    bound), with the times of both, of one index_add_ call and of the
+    output's zero-fill alone, and the bound."""
+    dev = xn.device
     L, T = hcfg.n_levels, hcfg.table_size
-    g = torch.randn((xn.shape[0], 2 * L), generator=gen, device=dev)
-    g = torch.where(m["valid"][:, None], g, 0.0).contiguous()
     got = hashgrid_table_grad_brick3(xn, g, hcfg)
     ref = _table_grad_plain(xn, g, hcfg)
     idx, w = _corner_terms(xn, hcfg)
@@ -323,13 +373,10 @@ def table_grad_check(trainer, hcfg) -> dict:
     tol = 2 * (count[:, None] - 1).clamp_min(1) * 2.0**-24 * abs_sum
     err = (got - ref).abs().reshape(-1, 2)
     torch.cuda.synchronize()
-    check(bool((err <= tol).all()),
-          f"brick3_table_grad kernel vs plain: max|diff| {float(err.max())}")
-    n_valid = int(m["total"])
+    check(bool((err <= tol).all()), f"brick3_table_grad kernel vs plain at "
+                                    f"{at}: max|diff| {float(err.max())}")
     rec = {
-        "name": "brick3_table_grad", "route": "cuda",
-        "source": "radnerf_tpu_torch/csrc/brick3_table_grad.cu",
-        "replaces": "radnerf_tpu/ops/hashgrid_brick3.py:493",
+        "at": at,
         "check": "within 2 (n - 1) 2^-24 sum|terms| per entry "
                  "(atomic summation order)",
         "max_abs_err": float(err.max()),
@@ -342,23 +389,96 @@ def table_grad_check(trainer, hcfg) -> dict:
         # indices and products (the zero-fill included, as in the kernel)
         "library_ms": median_ms(lambda: torch.zeros(
             (L * T, 2), device=dev).index_add_(0, flat_idx, flat_vals)),
+        # the wrapper's torch.zeros of the output, alone
+        "zero_fill_ms": median_ms(lambda: torch.zeros((L, T, 2),
+                                                      device=dev)),
     }
     # x and g read once, the 64 MiB gradient written once; ~60 f32
     # operations per valid (sample, level): 3 fma-floor-sub, 8 weights,
     # 16 products, 16 adds
     rec.update(bound(xn.shape[0] * (12 + 8 * L) + L * T * 8,
                      n_valid * L * 60))
-    print(f"[kernels] {rec['name']}: ok (max|diff| {rec['max_abs_err']:.3g},"
-          f" {rec['max_err_over_tol']:.3g} of its bound) on {rec['shape']}; "
-          f"median {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-          f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
-          f"ms ({rec['bound_by']})")
+    return rec
+
+
+def print_check(name: str, rec: dict) -> None:
+    extra = (f", {rec['max_err_over_tol']:.3g} of its bound, zero-fill "
+             f"{rec['zero_fill_ms']:.4f} ms" if "zero_fill_ms" in rec else "")
+    print(f"[kernels] {name} at {rec['at']}: {rec['check']} ok (max|diff| "
+          f"{rec['max_abs_err']:.3g}{extra}) on {rec['shape']}; median "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+          f"{rec['library_ms']}, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+
+
+def microbatch_checks(trainer, at: str) -> dict:
+    """All three kernels against their plain versions at one training
+    microbatch's shapes, on the trainer's current parameters, grids and
+    budget: the union march's lattice candidates of a 2048-ray batch
+    slice (kernel 2), its marched samples (kernels 1 and 3, with a random
+    output gradient on the valid slots, zero elsewhere, as the path
+    gives). Returns {kernel name: check record}."""
+    dev = trainer.data["directions"].device
+    hcfg = trainer.cfg.hash
+    gen = torch.Generator(device=dev).manual_seed(7)
+    mb = trainer.tcfg.batch_size // trainer.tcfg.n_microbatch
+    batch = tt.sample_batch(gen, trainer.data, mb)
+    poses = trainer.data["poses"][batch["img_idxs"]]
+    rays_o, rays_d = get_rays(trainer.data["directions"][batch["pix_idxs"]],
+                              poses)
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    state = trainer.model_state
+    center, half = scene_center_half(state)
+    t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
+    mcfg = trainer.rcfg.march(trainer.cfg)
+    _, dt, xyz, _ = _lattice_candidates(rays_o, rays_d, t1, t2, mcfg,
+                                        batch["noise"])
+    occ_union = state["occ"].any(dim=0).contiguous()
+    m, _ = march_rays_union_flat(
+        rays_o, rays_d, t1, t2, state["occ"], mcfg, batch["noise"],
+        budget_per_ray=trainer.rcfg.budget_per_ray,
+        cap_scale=trainer.cfg.n_experts)
+    rid = m["ray_id"].long()
+    x = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
+    xn = ((x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
+          ).clamp(0.0, 1.0).contiguous()
+    n_valid = int(m["total"])
+    g = torch.randn((xn.shape[0], 2 * hcfg.n_levels), generator=gen,
+                    device=dev)
+    g = torch.where(m["valid"][:, None], g, 0.0).contiguous()
+    table = trainer.bundle["model"]["hash_table"].detach()
+    recs = {
+        "occ_lookup": occ_check(xyz, dt, occ_union, mcfg, at),
+        "brick3_encode_fwd": encode_check(
+            table, pack_brick3_table(table), xn, hcfg, at, n_valid),
+        "brick3_table_grad": table_grad_check(xn, g, hcfg, at, n_valid),
+    }
+    for name, rec in recs.items():
+        print_check(name, rec)
+    return recs
+
+
+def grid_update_check(trainer) -> dict:
+    """Kernel 1 against its plain version on one expert's warmup grid
+    update: every cell of the grid at its jittered position."""
+    cfg = trainer.cfg
+    dev = trainer.data["directions"].device
+    gen = torch.Generator(device=dev).manual_seed(8)
+    xyz = cell_world_positions(all_cell_coords(cfg, dev), 0, cfg, gen)
+    state = trainer.model_state
+    xn = ((xyz - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
+          ).clamp(0.0, 1.0).contiguous()
+    table = trainer.bundle["model"]["hash_table"].detach()
+    rec = encode_check(table, pack_brick3_table(table), xn, cfg.hash,
+                       "warmup grid update", xn.shape[0], plain_reps=10)
+    print_check("brick3_encode_fwd", rec)
     return rec
 
 
 def train_phase(cfg: MNGPConfig, dev) -> tuple:
-    """The training slice at full width. Returns (kernel 3 record, launch
-    counts of the TRAIN_STEPS steps, summary)."""
+    """The training slice at full width. Returns ({kernel name: its check
+    records at training shapes}, launch counts of the TRAIN_STEPS steps,
+    summary)."""
     t0 = time.perf_counter()
     store = sphere_store(STORE_IMAGES, STORE_SIDE, dev)
     store["rays"] = render_sphere(store, cfg)
@@ -376,7 +496,10 @@ def train_phase(cfg: MNGPConfig, dev) -> tuple:
                          torch.Generator(device=dev).manual_seed(2))
     check(tcfg.n_microbatch == 4, "batch 8192 must take 4 microbatches")
     trainer.update_grid(warmup=True)        # the state a first step sees
-    k3 = table_grad_check(trainer, cfg.hash)
+    checks = {name: [rec] for name, rec in microbatch_checks(
+        trainer, f"train step 0 (budget {trainer.rcfg.budget_per_ray})"
+    ).items()}
+    checks["brick3_encode_fwd"].append(grid_update_check(trainer))
     trainer.model_state = init_mngp_state(cfg, device=dev)
 
     log, secs = [], []
@@ -430,6 +553,10 @@ def train_phase(cfg: MNGPConfig, dev) -> tuple:
           == mb * TRAIN_STEPS + n_updates * cfg.n_experts * cfg.cascades,
           "brick3_encode_fwd launches")
 
+    for name, rec in microbatch_checks(
+            trainer, f"train step {TRAIN_STEPS} (budget "
+                     f"{trainer.rcfg.budget_per_ray})").items():
+        checks[name].append(rec)
     prof = profile_call(
         lambda: trainer.train_step(tt.sample_batch(
             trainer.gen, trainer.data, tcfg.batch_size)),
@@ -439,7 +566,7 @@ def train_phase(cfg: MNGPConfig, dev) -> tuple:
                "psnr_last": last, "loss_last": losses[-1],
                "budget_per_ray": trainer.rcfg.budget_per_ray,
                "seconds": total, "profile": prof}
-    return k3, launches, summary
+    return checks, launches, summary
 
 
 def train_vs_cpu(trainer) -> None:
@@ -532,35 +659,9 @@ def main() -> None:
     t = sample_lattice(t1[:, None], k[None, :], mcfg)
     dt = calc_dt(t, mcfg)
     xyz = fma32(t[..., None], rays_d[:, None, :], rays_o[:, None, :])
-    n_cand = dt.numel()
 
-    occ_k = occupancy_lookup_bricks(xyz, dt, occ_union, mcfg)
-    occ_p = occupancy_lookup(xyz, dt, occ_union, mcfg)
-    torch.cuda.synchronize()
-    check(torch.equal(occ_k, occ_p), "occ_lookup kernel != plain version")
-    flat = _occ_flat_index(xyz, dt, mcfg)
-    occ_flat = occ_union.reshape(-1)
-    cells = int(torch.unique(flat).numel())
-    occ_rec = {
-        "name": "occ_lookup", "route": "cuda",
-        "source": "radnerf_tpu_torch/csrc/occ_lookup.cu",
-        "replaces": "radnerf_tpu/ops/marching.py:312",
-        "check": "exact",
-        "max_abs_err": float((occ_k.float() - occ_p.float()).abs().max()),
-        "shape": f"{tuple(dt.shape)} candidates, {tuple(occ_union.shape)} "
-                 f"grid, {int(occ_k.sum())} occupied",
-        "ms": median_ms(lambda: occupancy_lookup_bricks(xyz, dt, occ_union,
-                                                        mcfg)),
-        "plain_ms": median_ms(lambda: occupancy_lookup(xyz, dt, occ_union,
-                                                       mcfg)),
-        # the advanced-indexing gather of occupancy_lookup, given the
-        # flat cell indices
-        "library_ms": median_ms(lambda: occ_flat[flat]),
-    }
-    # xyz, dt in and a bool out per candidate, one byte per distinct cell;
-    # ~24 f32 operations per candidate (abs/max, frexp, 3 x div-add-mul-
-    # mul-clamp)
-    occ_rec.update(bound(n_cand * (12 + 4 + 1) + cells, n_cand * 24))
+    at = "render iteration 0"
+    render_checks = {"occ_lookup": occ_check(xyz, dt, occ_union, mcfg, at)}
 
     m = march_rays_test_flat(
         rays_o, rays_d, t1, t2, occ_union, mcfg, t1 >= 0,
@@ -571,41 +672,11 @@ def main() -> None:
     xs = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
     xn = ((xs - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
           ).clamp(0.0, 1.0).contiguous()
-    n_samp = xn.shape[0]
     table = params["hash_table"]
-    packed = pack_brick3_table(table)
-    enc_k = hashgrid_encode_brick3_fwd_impl(table, xn, hcfg, packed=packed)
-    enc_p = _encode_plain(packed, xn, hcfg)
-    torch.cuda.synchronize()
-    ulps = bf16_ulps(enc_k, enc_p)
-    check(ulps <= 1.0, f"brick3_encode_fwd kernel vs plain: {ulps} ulp")
-    words = brick3_words_needed(xn, hcfg)
-    enc_rec = {
-        "name": "brick3_encode_fwd", "route": "cuda",
-        "source": "radnerf_tpu_torch/csrc/brick3_encode_fwd.cu",
-        "replaces": "radnerf_tpu/ops/hashgrid_brick3.py:257",
-        "check": "<= 1 bf16 ulp",
-        "max_abs_err": float((enc_k.float() - enc_p.float()).abs().max()),
-        "max_ulp": ulps,
-        "exact_share": float((enc_k == enc_p).float().mean()),
-        "shape": f"{n_samp} samples ({int(m['total'])} valid), "
-                 f"L={hcfg.n_levels}, T=2^{hcfg.log2_table_size}",
-        "ms": median_ms(lambda: hashgrid_encode_brick3_fwd_impl(
-            table, xn, hcfg, packed=packed)),
-        "plain_ms": median_ms(lambda: _encode_plain(packed, xn, hcfg)),
-        "library_ms": None,
-    }
-    # x in, 2 bf16 out per (sample, level), the distinct table words read;
-    # ~60 f32 operations per (sample, level) (3 fma-floor-sub, 8 weights,
-    # 16 multiply-adds)
-    enc_rec.update(bound(n_samp * 12 + n_samp * hcfg.n_levels * 4
-                         + words * 4, n_samp * hcfg.n_levels * 60))
-    for rec in (occ_rec, enc_rec):
-        print(f"[kernels] {rec['name']}: {rec['check']} ok "
-              f"(max|diff| {rec['max_abs_err']:.3g}) on {rec['shape']}; "
-              f"median {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-              f"library {rec['library_ms']}, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']})")
+    render_checks["brick3_encode_fwd"] = encode_check(
+        table, pack_brick3_table(table), xn, hcfg, at, int(m["total"]))
+    for name, rec in render_checks.items():
+        print_check(name, rec)
 
     # 4. the slice at full width (one chunk first: allocator/cuBLAS warm-up)
     render_rays_chunked(params, state, cfg, gate, directions[:CHUNK], pose,
@@ -667,19 +738,38 @@ def main() -> None:
           "card and CPU marched different samples")
 
     # 5. the training slice at full width
-    k3_rec, train_launches, summary = train_phase(cfg, dev)
+    train_checks, train_launches, summary = train_phase(cfg, dev)
     print(json.dumps({"train": summary}))
 
     # 6. kernels line: launches of the training run (this slice's main
-    # path, which runs all three), and of the render
+    # path, which runs all three) and of the render; ms, plain, library
+    # and bound at a training step 0 microbatch, the shape of most
+    # launches; max_abs_err the worst of every check, all in "checks"
+    sources = {
+        "occ_lookup": ("radnerf_tpu_torch/csrc/occ_lookup.cu",
+                       "radnerf_tpu/ops/marching.py:312"),
+        "brick3_encode_fwd": ("radnerf_tpu_torch/csrc/brick3_encode_fwd.cu",
+                              "radnerf_tpu/ops/hashgrid_brick3.py:257"),
+        "brick3_table_grad": ("radnerf_tpu_torch/csrc/brick3_table_grad.cu",
+                              "radnerf_tpu/ops/hashgrid_brick3.py:493"),
+    }
     recs = []
-    for rec in (occ_rec, enc_rec, k3_rec):
-        name = rec["name"]
+    for name, (source, replaces) in sources.items():
         check(train_launches[name] > 0, f"kernel {name} not launched")
-        recs.append({**rec, "launches": train_launches[name],
-                     "launches_by_path": {"train": train_launches[name],
-                                          "render": launches[name]},
-                     "ok": True})
+        runs = train_checks[name] + (
+            [render_checks[name]] if name in render_checks else [])
+        main_rec = runs[0]
+        recs.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_launches[name],
+            "launches_by_path": {"train": train_launches[name],
+                                 "render": launches[name]},
+            "max_abs_err": max(r["max_abs_err"] for r in runs),
+            **{k: main_rec[k] for k in ("shape", "ms", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "bound_by")},
+            "checks": runs, "ok": True,
+        })
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

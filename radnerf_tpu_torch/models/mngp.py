@@ -14,6 +14,7 @@ from .. import DEFAULT_DEVICE
 from ..ops.hashgrid import init_hashgrid_table
 from ..ops.hashgrid_brick3 import (
     hashgrid_encode_brick3, hashgrid_encode_brick3_fwd_impl,
+    pack_brick3_table,
 )
 from ..ops.trunc_exp import trunc_exp
 from .mlp import apply_mlp, init_stacked_mlp, slice_stacked
@@ -108,9 +109,11 @@ def _encode(params, state, cfg: MNGPConfig, x: torch.Tensor,
 
 def mngp_density_expert(params, state, cfg: MNGPConfig, x: torch.Tensor,
                         ind: int, return_feat: bool = False,
-                        impl: str | None = None):
-    """sigma(x) of expert `ind` (and its geo features if asked)."""
-    feat = _encode(params, state, cfg, x, impl=impl)
+                        impl: str | None = None,
+                        packed: torch.Tensor | None = None):
+    """sigma(x) of expert `ind` (and its geo features if asked);
+    `packed` as in _encode."""
+    feat = _encode(params, state, cfg, x, impl=impl, packed=packed)
     h = apply_mlp(slice_stacked(params["geo"], ind), feat,
                   compute_dtype=cfg.cdtype)
     sigmas = trunc_exp(h[:, 0])
@@ -132,8 +135,9 @@ def mngp_update_density_grids(
 ) -> dict:
     """Update all K per-expert grids, one expert after another; the
     density pass takes the 'brick3_plain' forward (grid cells are
-    spatially incoherent). `draws[k]` are expert k's explicit draws (see
-    update_density_grid)."""
+    spatially incoherent) on a table packed once for all experts.
+    `draws[k]` are expert k's explicit draws (see update_density_grid)."""
+    packed = pack_brick3_table(params["hash_table"])
     grids, occs = [], []
     for k in range(cfg.n_experts):
         sub_state = {**state, "density_grid": state["density_grid"][k],
@@ -141,7 +145,8 @@ def mngp_update_density_grids(
         new = update_density_grid(
             params, sub_state, cfg, gen, density_threshold, warmup,
             lambda x, k=k: mngp_density_expert(params, state, cfg, x, k,
-                                               impl="brick3_plain"),
+                                               impl="brick3_plain",
+                                               packed=packed),
             decay, None if draws is None else draws[k],
         )
         grids.append(new["density_grid"])

@@ -5,9 +5,10 @@ logging, validation and checkpoints are queued in ROADMAP.md).
 The step: gate, one union march, one shared brick3 encode, per-expert
 MLPs and flat compositing, nerf_loss, backward, Adam (eps 1e-15) at the
 cosine learning rate. Beside it the density grids are updated every 16
-steps (every cell below `warmup_steps`) and, with the adaptive budget,
-the flat-layout sample budget is re-picked from the measured buffer
-utilization. Batches are drawn on the device from a device-resident ray
+steps (every cell below `warmup_steps`) and the flat-layout sample
+budget is re-picked from the measured buffer utilization (the
+reference's --adaptive_budget, on by default; the fixed budget comes
+with the NeRFSystem shell). Batches are drawn on the device from a device-resident ray
 store; the per-ray start jitter is drawn from a torch.Generator and
 travels in the batch.
 """
@@ -77,7 +78,6 @@ class TrainConfig:
     warmup_steps: int = 256
     samples_per_ray: int = 192
     budget_per_ray: int = 64
-    adaptive_budget: bool = True
     gate_type: str = "ray"
     opacity_loss_w: float = 1e-3
     distortion_loss_w: float = 0.0
@@ -94,14 +94,13 @@ class TrainConfig:
 def render_config(cfg: MNGPConfig, tcfg: TrainConfig) -> RenderConfig:
     """The trainer's render settings: a constant-dt lattice and white
     background at scale <= 0.5, the flat layout, and a union budget
-    governed by the bucket ladder when the budget is adaptive (factor 1)
-    or scaled by K when it is fixed (factor 0 = auto)."""
+    governed by the bucket ladder (the adaptive budget: factor 1)."""
     return RenderConfig(
         exp_step_factor=1 / 256 if cfg.scale > 0.5 else 0.0,
         samples_per_ray=tcfg.samples_per_ray,
         layout="flat",
         budget_per_ray=tcfg.budget_per_ray,
-        union_budget_factor=1.0 if tcfg.adaptive_budget else 0.0,
+        union_budget_factor=1.0,
     )
 
 
@@ -215,13 +214,11 @@ class Trainer:
             step = self.global_step
             if step % UPDATE_INTERVAL == 0:
                 self.update_grid(warmup=step < self.tcfg.warmup_steps)
-                if (self.tcfg.adaptive_budget
-                        and step >= self.tcfg.warmup_steps):
+                if step >= self.tcfg.warmup_steps:
                     self.maybe_adapt_budget()
             batch = sample_batch(self.gen, self.data, self.tcfg.batch_size)
             loss, aux = self.train_step(batch)
-            if (self.tcfg.adaptive_budget
-                    and step % UPDATE_INTERVAL == UPDATE_INTERVAL - 1):
+            if step % UPDATE_INTERVAL == UPDATE_INTERVAL - 1:
                 # one host read, right before the next grid update
                 self.last_budget_util = float(aux["budget_util"])
             if on_step is not None:

@@ -44,6 +44,8 @@ from radnerf_tpu_torch.render.ml_render import ml_render_train
 from radnerf_tpu_torch.render.render import RenderConfig
 from radnerf_tpu_torch.train import trainer as tt
 
+from .test_torch_train_ops import j_optimizer
+
 torch.set_num_threads(1)
 
 CFG_KW = dict(scale=0.5, grid_size=16, n_levels=4, log2_T=10, n_experts=2,
@@ -203,9 +205,7 @@ def test_five_adam_steps_track_the_jax_loss(patched):
     jcfg, jbundle, jstate = _setup()
     rcfg_j = JRender(**RENDER_KW)
     data = _store()
-    lr = functools.partial(tt.lr_schedule, TCFG)
-    opt = optax.adam(lambda c: jnp.asarray(
-        [lr(i) for i in range(8)])[c], eps=1e-15)
+    _, opt = j_optimizer(TCFG)
     vg = jax.jit(j_microbatched_vg(_j_loss(jcfg, rcfg_j, jstate, data), 2))
     ost = opt.init(jbundle)
     j_losses = []

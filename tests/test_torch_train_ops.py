@@ -3,6 +3,8 @@ backward, the training compositor (forward and VJP, and against finite
 differences in float64), the union march, the losses, the adaptive
 budget ladder, the learning-rate schedule and the Adam update."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -364,21 +366,20 @@ def test_next_budget_bucket_matches_jax(cur, util):
         jt.UPDATE_INTERVAL, jt.MAX_SAMPLES, jt.DENSITY_THRESHOLD)
 
 
-def _j_lr_schedule(lr, num_epochs, spe):
-    """trainer.py's configure_optimizers schedule."""
-    eta_min = lr / 30
-
-    def lr_schedule(step):
-        epoch = jnp.minimum(step // spe, num_epochs)
-        return eta_min + 0.5 * (lr - eta_min) * (
-            1 + jnp.cos(jnp.pi * epoch / num_epochs))
-
-    return lr_schedule
+def j_optimizer(tcfg):
+    """The reference's own schedule and Adam: NeRFSystem.configure_optimizers
+    run on a stand-in holding only what it reads."""
+    system = SimpleNamespace(
+        h=SimpleNamespace(lr=tcfg.lr, num_epochs=tcfg.num_epochs),
+        train_dataset=SimpleNamespace(STEPS_PER_EPOCH=tcfg.steps_per_epoch),
+        ext_params=None, _bundle_params=dict)
+    jt.NeRFSystem.configure_optimizers(system)
+    return system.lr_schedule, system.optimizer
 
 
 def test_lr_schedule_and_adam_match_optax():
     tcfg = tt.TrainConfig(steps_per_epoch=10, num_epochs=4)
-    js = _j_lr_schedule(tcfg.lr, tcfg.num_epochs, tcfg.steps_per_epoch)
+    js, opt = j_optimizer(tcfg)
     for step in (0, 9, 10, 25, 39, 40, 1000):
         np.testing.assert_allclose(tt.lr_schedule(tcfg, step),
                                    float(js(step)), rtol=1e-6)
@@ -390,8 +391,7 @@ def test_lr_schedule_and_adam_match_optax():
     grads = [{k: rng.normal(size=v.shape).astype(np.float32) * 10.0 ** i
               for k, v in p0.items()} for i in (-3, 0, 2)]
     grads[1]["b"][:3] = 0.0                       # untouched entries
-    opt = optax.adam(js, eps=1e-15)
-    jp, st = jax.tree_util.tree_map(jnp.asarray, p0), None
+    jp = jax.tree_util.tree_map(jnp.asarray, p0)
     st = opt.init(jp)
     tp = {k: _t(v.copy()).requires_grad_(True) for k, v in p0.items()}
     topt = torch.optim.Adam(list(tp.values()), lr=tcfg.lr, eps=1e-15)
