@@ -27,25 +27,46 @@ CPU fallback):
      batch 8192 in 4 microbatches of 2048 rays, budget 64, lr 1e-2, cv
      1e-2, depth-mutual 5e-3) on an analytic emissive 0.3-sphere: a ray
      store of 32 cameras x 64x64 pixels whose target colours the port's
-     own march and compositor render (no dataset); then all three
-     kernels against their plain versions at one 2048-ray microbatch's
-     shapes (the union march's 2048 x 1024 lattice candidates, its
-     marched samples, the table gradient of a random output gradient),
-     and the encode on one warmup grid update's 2,097,152 cells; then
-     TRAIN_STEPS steps of Trainer.fit_steps (grid updates every 16 steps,
-     every cell below step 256, the adaptive budget), launch counts reset
-     just before and read just after; loss and PSNR at intervals, train
-     rays/s (median over the steps after the first 16); the microbatch
-     checks again at the trained grids and the grown budget; one step
-     profiled; then one 256-ray step on the card and on the CPU (plain
-     versions) from the same parameters and draws, loss and every
-     gradient leaf compared;
-  6. a JSON line with every kernel's check, launches, times and bound;
-  7. the last line: {"ok": true, "device": {...}}.
+     own march and compositor render (no dataset); then every kernel
+     against its plain version at one 2048-ray microbatch's shapes (the
+     union march's 2048 x 1024 lattice candidates, its marched samples,
+     the table gradient of a random output gradient; the tcnn, slab and
+     brick scatter kernels on the streams their families' backwards build
+     from the same samples and gradient), the PyTorch forwards of the
+     other families timed on the same samples, and the encode on one
+     warmup grid update's 2,097,152 cells; then TRAIN_STEPS steps of
+     Trainer.fit_steps (grid updates every 16 steps, every cell below
+     step 256, the adaptive budget), launch counts reset just before and
+     read just after; loss and PSNR at intervals, train rays/s (median
+     over the steps after the first 16); the microbatch checks again at
+     the trained grids and the grown budget; one step profiled; the
+     encode alone timed (forward and backward) at a trained microbatch;
+     then one 256-ray step on the card and on the CPU (plain versions)
+     from the same parameters and draws, loss and every gradient leaf
+     compared;
+  6. the 'dedup' family (the tcnn hash, whose backward is the
+     tcnn_table_grad kernel) trained the same way from the same seeds for
+     DEDUP_STEPS steps: PSNR must rise, the launch counts are exact
+     (tcnn_table_grad once per microbatch, no brick3 kernel); one step
+     profiled; the encode alone timed; a 256-ray card-vs-CPU step; and
+     one float32 step
+     (compute_dtype float32, hash_impl brick3, which routes to 'dedup')
+     card against CPU;
+  7. short runs of the 'slab', 'brick' and 'pallas' families
+     (FAMILY_STEPS steps each): finite losses, exact launch counts of
+     their kernels, the encode alone timed, and a 256-ray card-vs-CPU
+     step each;
+  8. a JSON line with every kernel's check, launches (per phase), times
+     and bound;
+  9. the last line: {"ok": true, "device": {...}}.
+
+Phase 4 also renders 256 rays with hash_impl 'dedup' on the card and on
+the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import time
@@ -59,18 +80,34 @@ from radnerf_tpu_torch.models.mngp import MNGPConfig, init_mngp, init_mngp_state
 from radnerf_tpu_torch.models.ngp import (
     all_cell_coords, cell_world_positions, scene_center_half,
 )
+from radnerf_tpu_torch.ops import hashgrid_brick, hashgrid_slab
 from radnerf_tpu_torch.ops.compositing import composite_train_flat
 from radnerf_tpu_torch.ops.fma import fma32
+from radnerf_tpu_torch.ops.hashgrid import (
+    encode_dispatch, hashgrid_encode, hashgrid_indices, hashgrid_indices_cm,
+)
 from radnerf_tpu_torch.ops.hashgrid_brick3 import (
     _corner_terms, _encode_plain, _table_grad_plain,
     hashgrid_encode_brick3_fwd_impl, hashgrid_table_grad_brick3,
     pack_brick3_table,
+)
+from radnerf_tpu_torch.ops.hashgrid_dedup import (
+    hashgrid_encode_dedup_fwd_impl,
+)
+from radnerf_tpu_torch.ops.hashgrid_pallas import (
+    hashgrid_table_grad, point_stream,
+)
+from radnerf_tpu_torch.ops.hashgrid_window import (
+    hashgrid_table_grad_window, tcnn_stream,
 )
 from radnerf_tpu_torch.ops.intersection import scene_near_far
 from radnerf_tpu_torch.ops.marching import (
     _lattice_candidates, _occ_flat_index, calc_dt, march_rays_test_flat,
     march_rays_union_flat, occupancy_lookup, occupancy_lookup_bricks,
     sample_lattice,
+)
+from radnerf_tpu_torch.ops.stream_table_grad import (
+    stream_table_grad, stream_table_grad_plain, stream_terms,
 )
 from radnerf_tpu_torch.parallel.step import (
     microbatched_value_and_grad, tree_leaves, tree_unflatten,
@@ -81,6 +118,7 @@ from radnerf_tpu_torch.train import trainer as tt
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32, outside the tensor cores
+T_START = time.perf_counter()
 SIDE = 400                      # image side (pixels)
 CHUNK = 4096                    # rays per ml_render_test call (--val_chunk)
 CPU_RAYS = 256                  # rays of the card-vs-CPU chunk
@@ -101,6 +139,17 @@ STORE_IMAGES, STORE_SIDE = 32, 64   # the ray store: 32 cameras x 64x64
 # largest entry
 TRAIN_CPU_LOSS_RTOL = 1e-2
 TRAIN_CPU_GRAD_RTOL = 2e-2
+# the same in float32: the MLPs' f32 sums in other orders (cuBLAS vs the
+# CPU); the first geo layer's weight gradient sums tiny hash features
+# with much cancellation, so its leaf moves most
+TRAIN_CPU_F32_LOSS_RTOL = 1e-4
+TRAIN_CPU_F32_GRAD_RTOL = 5e-3
+DEDUP_STEPS = 320               # the dedup family: as long as phase 5
+FAMILY_STEPS = 48               # slab, brick, pallas: 3 warmup updates
+# hash family -> its table-gradient kernel
+FAMILY_KERNELS = {"brick3": "brick3_table_grad",
+                  "dedup": "tcnn_table_grad", "slab": "slab_table_grad",
+                  "brick": "brick_table_grad", "pallas": "tcnn_table_grad"}
 # kernel 3 vs its plain version: the same f32 products summed by atomics
 # in an order that changes from run to run: within 2 (n - 1) u sum|terms|
 # per table entry (n terms, u = 2^-24)
@@ -401,9 +450,117 @@ def table_grad_check(xn, g, hcfg, at: str, n_valid: int) -> dict:
     return rec
 
 
+def stream_check(name: str, contract: str, keys, vals, T: int, at: str,
+                 contract_fn) -> dict:
+    """A scatter kernel of csrc/stream_table_grad.cu against its plain
+    twin on the stream its family's backward builds (within the atomic
+    summation-order bound), with the times of the kernel's wrapper, the
+    twin, one index_add_ of the same terms and the whole contract
+    function (the stream built from positions and gradient included),
+    and the bound."""
+    dev = keys.device
+    L, n = keys.shape
+    got = stream_table_grad(name, keys, vals, T)
+    ref = stream_table_grad_plain(name, keys, vals, T)
+    flat, terms = stream_terms(name, keys, vals, T)
+    abs_sum = torch.zeros((L * T, 2), device=dev).index_add_(
+        0, flat, terms.abs())
+    count = torch.zeros((L * T, 2), device=dev).index_add_(
+        0, flat, (terms != 0).float())
+    tol = 2 * (count - 1).clamp_min(1) * 2.0**-24 * abs_sum
+    err = (got - ref).abs().reshape(-1, 2)
+    torch.cuda.synchronize()
+    check(bool((err <= tol).all()), f"{name} kernel vs plain ({contract}) "
+                                    f"at {at}: max|diff| {float(err.max())}")
+    n_terms = int((terms != 0).sum())
+    rec = {
+        "at": at, "contract": contract,
+        "check": "within 2 (n - 1) 2^-24 sum|terms| per entry "
+                 "(atomic summation order)",
+        "max_abs_err": float(err.max()),
+        "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
+        "shape": f"{L} x {n} stream entries, {n_terms} nonzero f32 terms, "
+                 f"T=2^{T.bit_length() - 1}, out {L * T * 8 >> 20} MiB",
+        "ms": median_ms(lambda: stream_table_grad(name, keys, vals, T)),
+        "plain_ms": median_ms(lambda: stream_table_grad_plain(
+            name, keys, vals, T), reps=10),
+        # one PyTorch call for the same scatter-add, given the flat
+        # entries and terms (the zero-fill included, as in the kernel)
+        "library_ms": median_ms(lambda: torch.zeros(
+            (L * T, 2), device=dev).index_add_(0, flat, terms)),
+        "contract_ms": median_ms(contract_fn, reps=10),
+    }
+    # keys and value planes read once, the 64 MiB gradient written once;
+    # one f32 add per nonzero term
+    rec.update(bound(keys.numel() * 4 + vals.numel() * 4 + L * T * 8,
+                     n_terms))
+    return rec
+
+
+def stream_checks(xn, g, hcfg, at: str) -> dict:
+    """Kernels 4-7 (three CUDA entry points) at one microbatch: the tcnn
+    stream of the corner-major and the point-major corners, the slab pair
+    stream and the brick stream of positions xn and output gradient g.
+    Returns {contract: check record}."""
+    T = hcfg.table_size
+    recs = {}
+    idx, w = hashgrid_indices_cm(xn, hcfg)
+    recs["hashgrid_table_grad_window"] = stream_check(
+        "tcnn_table_grad", "hashgrid_table_grad_window",
+        *tcnn_stream(idx, w, g), T, at,
+        lambda: hashgrid_table_grad_window(idx, w, g, hcfg))
+    idx, w = hashgrid_indices(xn, hcfg)
+    recs["hashgrid_table_grad"] = stream_check(
+        "tcnn_table_grad", "hashgrid_table_grad", *point_stream(idx, w, g),
+        T, at, lambda: hashgrid_table_grad(idx, w, g, hcfg))
+    del idx, w
+    key, (v0e, v0o, v1e, v1o) = hashgrid_slab._bwd_streams(xn, g, hcfg)
+    recs["sorted_table_grad_window_pair"] = stream_check(
+        "slab_table_grad", "sorted_table_grad_window_pair", key,
+        torch.stack([v0e, v1e, v0o, v1o]), T, at,
+        lambda: hashgrid_slab.hashgrid_table_grad_slab(xn, g, hcfg))
+    key, vals = hashgrid_brick._bwd_streams(xn, g, hcfg)
+    recs["sorted_table_grad_brick"] = stream_check(
+        "brick_table_grad", "sorted_table_grad_brick", key,
+        torch.stack(vals), T, at,
+        lambda: hashgrid_brick.hashgrid_table_grad_brick(xn, g, hcfg))
+    return recs
+
+
+def forward_times(table, xn, hcfg) -> dict:
+    """Median ms of each family's forward at one microbatch's samples:
+    the PyTorch gathers of the tcnn hash (bf16 and f32), slab ('plain'
+    and the dedup forward over its addressing) and brick, beside the
+    brick3 kernel."""
+    packed = pack_brick3_table(table)
+    fwds = {
+        "tcnn bf16 (window, dedup, sort, pallas, xla)":
+            lambda: hashgrid_encode(table, xn, hcfg, torch.bfloat16),
+        "tcnn f32 (every f32 run)":
+            lambda: hashgrid_encode(table, xn, hcfg, torch.float32),
+        "slab plain": lambda: hashgrid_slab.hashgrid_encode_slab_fwd_impl(
+            table, xn, hcfg),
+        "slab dedup": lambda: hashgrid_encode_dedup_fwd_impl(
+            table, xn, hcfg, torch.bfloat16, addr="slab"),
+        "brick": lambda: hashgrid_brick.hashgrid_encode_brick_fwd_impl(
+            table, xn, hcfg),
+        "brick3 (kernel 1)": lambda: hashgrid_encode_brick3_fwd_impl(
+            table, xn, hcfg, packed=packed),
+    }
+    out = {k: median_ms(f, reps=10, warmup=2) for k, f in fwds.items()}
+    print(f"[forwards] {xn.shape[0]} samples, L={hcfg.n_levels}: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items()))
+    return out
+
+
 def print_check(name: str, rec: dict) -> None:
-    extra = (f", {rec['max_err_over_tol']:.3g} of its bound, zero-fill "
-             f"{rec['zero_fill_ms']:.4f} ms" if "zero_fill_ms" in rec else "")
+    extra = (f", {rec['max_err_over_tol']:.3g} of its bound"
+             if "max_err_over_tol" in rec else "")
+    if "zero_fill_ms" in rec:
+        extra += f", zero-fill {rec['zero_fill_ms']:.4f} ms"
+    if "contract_ms" in rec:
+        extra += (f", contract {rec['contract']} in "
+                  f"{rec['contract_ms']:.4f} ms")
     print(f"[kernels] {name} at {rec['at']}: {rec['check']} ok (max|diff| "
           f"{rec['max_abs_err']:.3g}{extra}) on {rec['shape']}; median "
           f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
@@ -411,13 +568,12 @@ def print_check(name: str, rec: dict) -> None:
           f"({rec['bound_by']})")
 
 
-def microbatch_checks(trainer, at: str) -> dict:
-    """All three kernels against their plain versions at one training
-    microbatch's shapes, on the trainer's current parameters, grids and
-    budget: the union march's lattice candidates of a 2048-ray batch
-    slice (kernel 2), its marched samples (kernels 1 and 3, with a random
-    output gradient on the valid slots, zero elsewhere, as the path
-    gives). Returns {kernel name: check record}."""
+def microbatch(trainer) -> dict:
+    """One 2048-ray microbatch (draws from seed 7) of the trainer's
+    current parameters, grids and budget: the union march's lattice
+    candidates (xyz, dt) and union grid, its marched samples xn in
+    [0, 1]^3, and a random output gradient g on the valid slots, zero
+    elsewhere (as the path gives)."""
     dev = trainer.data["directions"].device
     hcfg = trainer.cfg.hash
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -433,7 +589,6 @@ def microbatch_checks(trainer, at: str) -> dict:
     mcfg = trainer.rcfg.march(trainer.cfg)
     _, dt, xyz, _ = _lattice_candidates(rays_o, rays_d, t1, t2, mcfg,
                                         batch["noise"])
-    occ_union = state["occ"].any(dim=0).contiguous()
     m, _ = march_rays_union_flat(
         rays_o, rays_d, t1, t2, state["occ"], mcfg, batch["noise"],
         budget_per_ray=trainer.rcfg.budget_per_ray,
@@ -442,20 +597,65 @@ def microbatch_checks(trainer, at: str) -> dict:
     x = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
     xn = ((x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
           ).clamp(0.0, 1.0).contiguous()
-    n_valid = int(m["total"])
     g = torch.randn((xn.shape[0], 2 * hcfg.n_levels), generator=gen,
                     device=dev)
-    g = torch.where(m["valid"][:, None], g, 0.0).contiguous()
+    return {"xyz": xyz, "dt": dt, "mcfg": mcfg,
+            "occ_union": state["occ"].any(dim=0).contiguous(), "xn": xn,
+            "g": torch.where(m["valid"][:, None], g, 0.0).contiguous(),
+            "n_valid": int(m["total"])}
+
+
+def microbatch_checks(trainer, at: str, streams: bool = False) -> dict:
+    """Kernels 1-3 against their plain versions at one training
+    microbatch's shapes (`microbatch`): kernel 2 on the lattice
+    candidates, kernels 1 and 3 on the marched samples and gradient; with
+    `streams`, also kernels 4-7 and the forwards' times on the same
+    samples and gradient. Returns {kernel name or contract: check
+    record} (and "forward_ms")."""
+    b = microbatch(trainer)
+    hcfg = trainer.cfg.hash
+    xn, g, n_valid = b["xn"], b["g"], b["n_valid"]
     table = trainer.bundle["model"]["hash_table"].detach()
     recs = {
-        "occ_lookup": occ_check(xyz, dt, occ_union, mcfg, at),
+        "occ_lookup": occ_check(b["xyz"], b["dt"], b["occ_union"],
+                                b["mcfg"], at),
         "brick3_encode_fwd": encode_check(
             table, pack_brick3_table(table), xn, hcfg, at, n_valid),
         "brick3_table_grad": table_grad_check(xn, g, hcfg, at, n_valid),
     }
+    if streams:
+        recs.update(stream_checks(xn, g, hcfg, at))
     for name, rec in recs.items():
         print_check(name, rec)
+    if streams:
+        recs["forward_ms"] = forward_times(table, xn, hcfg)
     return recs
+
+
+def encode_times(trainer, label: str) -> dict:
+    """The trainer's hash encode alone at one microbatch of its current
+    state, as the step runs it (differentiable, no pre-packed table):
+    median ms of the forward and of the backward (the table gradient:
+    corners computed again, the stream built, the kernel)."""
+    b = microbatch(trainer)
+    cfg = trainer.cfg
+    table = trainer.bundle["model"]["hash_table"].detach().requires_grad_()
+
+    def fwd():
+        return encode_dispatch(table, b["xn"], cfg.hash, cfg.cdtype,
+                               cfg.hash_impl)
+
+    out = fwd()
+    g = b["g"].to(out.dtype)
+    rec = {"samples": b["xn"].shape[0],
+           "forward_ms": median_ms(fwd, reps=10, warmup=2),
+           "backward_ms": median_ms(lambda: torch.autograd.grad(
+               out, table, g, retain_graph=True), reps=10, warmup=2)}
+    print(f"[{label}] the {cfg.hash_impl} encode alone at one microbatch "
+          f"({rec['samples']} samples, budget "
+          f"{trainer.rcfg.budget_per_ray}): forward {rec['forward_ms']:.3f} "
+          f"ms, backward {rec['backward_ms']:.3f} ms")
+    return rec
 
 
 def grid_update_check(trainer) -> dict:
@@ -475,10 +675,8 @@ def grid_update_check(trainer) -> dict:
     return rec
 
 
-def train_phase(cfg: MNGPConfig, dev) -> tuple:
-    """The training slice at full width. Returns ({kernel name: its check
-    records at training shapes}, launch counts of the TRAIN_STEPS steps,
-    summary)."""
+def ray_store(cfg: MNGPConfig, dev) -> dict:
+    """The training phases' ray store and its target colours."""
     t0 = time.perf_counter()
     store = sphere_store(STORE_IMAGES, STORE_SIDE, dev)
     store["rays"] = render_sphere(store, cfg)
@@ -488,6 +686,12 @@ def train_phase(cfg: MNGPConfig, dev) -> tuple:
           f"{STORE_SIDE}x{STORE_SIDE}), targets rendered in "
           f"{time.perf_counter() - t0:.1f} s; mean colour "
           f"{float(store['rays'].mean()):.4f}")
+    return store
+
+
+def new_trainer(cfg: MNGPConfig, store: dict, dev):
+    """A trainer at TrainConfig's defaults from seeds 1 (weights) and 2
+    (draws), with empty grids."""
     tcfg = tt.TrainConfig()
     gen = torch.Generator().manual_seed(1)
     trainer = tt.Trainer(cfg, tcfg, init_mngp(gen, cfg, device=dev),
@@ -495,84 +699,141 @@ def train_phase(cfg: MNGPConfig, dev) -> tuple:
                          init_mngp_state(cfg, device=dev), store,
                          torch.Generator(device=dev).manual_seed(2))
     check(tcfg.n_microbatch == 4, "batch 8192 must take 4 microbatches")
-    trainer.update_grid(warmup=True)        # the state a first step sees
-    checks = {name: [rec] for name, rec in microbatch_checks(
-        trainer, f"train step 0 (budget {trainer.rcfg.budget_per_ray})"
-    ).items()}
-    checks["brick3_encode_fwd"].append(grid_update_check(trainer))
-    trainer.model_state = init_mngp_state(cfg, device=dev)
+    return trainer
 
+
+def fit(trainer, n_steps: int, label: str) -> tuple:
+    """n_steps of Trainer.fit_steps, the launch counts reset just before
+    and read just after. Returns (launch counts, summary): train rays/s
+    (median over the steps after the first 16), PSNR of the first and
+    last 16 steps, the last loss, the budget and the seconds."""
+    tcfg = trainer.tcfg
     log, secs = [], []
     t_last = [0.0]
+    every = max(n_steps // 10, 1)
 
     def on_step(step, loss, aux):
         torch.cuda.synchronize()
         now = time.perf_counter()
         secs.append(now - t_last[0])
         t_last[0] = now
-        if step % 32 == 0 or step == TRAIN_STEPS - 1:
-            rec = {"step": step, "loss": float(loss),
-                   "psnr": float(aux["psnr"]),
-                   "budget_per_ray": trainer.rcfg.budget_per_ray,
-                   "budget_util": float(aux["budget_util"]),
-                   "occ": float(trainer.model_state["occ"].float().mean())}
-            log.append(rec)
-            print(f"[train] step {step}: loss {rec['loss']:.5f} psnr "
-                  f"{rec['psnr']:.2f} budget {rec['budget_per_ray']} util "
-                  f"{rec['budget_util']:.3f} occupied {rec['occ']:.4f}")
-        else:
-            log.append({"step": step, "loss": float(loss),
-                        "psnr": float(aux["psnr"])})
+        log.append({"loss": float(loss), "psnr": float(aux["psnr"])})
+        if step % every == 0 or step == n_steps - 1:
+            print(f"[{label}] step {step}: loss {log[-1]['loss']:.5f} psnr "
+                  f"{log[-1]['psnr']:.2f} budget "
+                  f"{trainer.rcfg.budget_per_ray} util "
+                  f"{float(aux['budget_util']):.3f} occupied "
+                  f"{float(trainer.model_state['occ'].float().mean()):.4f}")
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t_last[0] = t0 = time.perf_counter()
-    trainer.fit_steps(TRAIN_STEPS, on_step)
+    trainer.fit_steps(n_steps, on_step)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
     rates = [tcfg.batch_size / s for s in secs[16:]]
-    losses = [r["loss"] for r in log]
     psnrs = [r["psnr"] for r in log]
     first, last = float(np.mean(psnrs[:16])), float(np.mean(psnrs[-16:]))
-    print(f"[train] {TRAIN_STEPS} steps of {tcfg.batch_size} rays in "
+    print(f"[{label}] {n_steps} steps of {tcfg.batch_size} rays in "
           f"{total:.1f} s; train rays/s median {np.median(rates):.0f} over "
-          f"steps 16-{TRAIN_STEPS - 1} (min {min(rates):.0f}, max "
+          f"steps 16-{n_steps - 1} (min {min(rates):.0f}, max "
           f"{max(rates):.0f}); psnr {first:.2f} -> {last:.2f} dB (mean of "
-          f"the first and last 16 steps); budget {trainer.rcfg.budget_per_ray}"
-          f"; launches {launches}")
-    check(all(np.isfinite(losses)), "non-finite training loss")
-    check(last > first + 3.0, f"psnr did not rise: {first} -> {last}")
-    n_updates = -(-TRAIN_STEPS // tt.UPDATE_INTERVAL)
-    mb = tcfg.n_microbatch
-    check(launches["brick3_table_grad"] == mb * TRAIN_STEPS,
-          f"kernel 3 launched {launches['brick3_table_grad']} times, not "
-          f"{mb} x {TRAIN_STEPS}")
-    check(launches["occ_lookup"] == mb * TRAIN_STEPS, "occ_lookup launches")
-    check(launches["brick3_encode_fwd"]
-          == mb * TRAIN_STEPS + n_updates * cfg.n_experts * cfg.cascades,
-          "brick3_encode_fwd launches")
+          f"the first and last 16 steps); budget "
+          f"{trainer.rcfg.budget_per_ray}; launches {launches}")
+    check(all(np.isfinite([r["loss"] for r in log])),
+          f"non-finite training loss ({label})")
+    return launches, {
+        "steps": n_steps, "rays_per_s": float(np.median(rates)),
+        "psnr_first": first, "psnr_last": last,
+        "loss_last": log[-1]["loss"],
+        "budget_per_ray": trainer.rcfg.budget_per_ray, "seconds": total}
+
+
+def check_launches(launches: dict, cfg: MNGPConfig, n_steps: int,
+                   mb: int, label: str) -> None:
+    """Exact launch counts of a training run: the family's table-gradient
+    kernel and the occupancy kernel once per microbatch, the brick3
+    encode kernel once per microbatch and once per expert and cascade of
+    each grid update (brick3 only), every other kernel never."""
+    family = cfg.hash_impl if cfg.cdtype == torch.bfloat16 else "dedup"
+    n_updates = -(-n_steps // tt.UPDATE_INTERVAL)
+    want = {name: 0 for name in launches}
+    want["occ_lookup"] = mb * n_steps
+    want[FAMILY_KERNELS[family]] = mb * n_steps
+    if family == "brick3":
+        want["brick3_encode_fwd"] = (
+            mb * n_steps + n_updates * cfg.n_experts * cfg.cascades)
+    check(launches == want, f"{label} launches {launches}, expected {want}")
+
+
+def train_phase(cfg: MNGPConfig, store: dict, dev) -> tuple:
+    """Phase 5, brick3 at full width. Returns ({kernel or contract: its
+    check records at training shapes}, launch counts of the TRAIN_STEPS
+    steps, summary)."""
+    trainer = new_trainer(cfg, store, dev)
+    trainer.update_grid(warmup=True)        # the state a first step sees
+    checks = microbatch_checks(
+        trainer, f"train step 0 (budget {trainer.rcfg.budget_per_ray})",
+        streams=True)
+    forwards = checks.pop("forward_ms")
+    checks = {name: [rec] for name, rec in checks.items()}
+    checks["brick3_encode_fwd"].append(grid_update_check(trainer))
+    trainer.model_state = init_mngp_state(cfg, device=dev)
+
+    launches, summary = fit(trainer, TRAIN_STEPS, "train")
+    check(summary["psnr_last"] > summary["psnr_first"] + 3.0,
+          f"psnr did not rise: {summary}")
+    mb = trainer.tcfg.n_microbatch
+    check_launches(launches, cfg, TRAIN_STEPS, mb, "brick3 training")
 
     for name, rec in microbatch_checks(
             trainer, f"train step {TRAIN_STEPS} (budget "
                      f"{trainer.rcfg.budget_per_ray})").items():
         checks[name].append(rec)
-    prof = profile_call(
+    summary["profile"] = profile_call(
         lambda: trainer.train_step(tt.sample_batch(
-            trainer.gen, trainer.data, tcfg.batch_size)),
-        f"one training step ({tcfg.batch_size} rays, {mb} microbatches)")
+            trainer.gen, trainer.data, trainer.tcfg.batch_size)),
+        f"one training step ({trainer.tcfg.batch_size} rays, {mb} "
+        f"microbatches)")
+    summary["forward_ms"] = forwards
+    summary["encode_ms"] = encode_times(trainer, "train")
     train_vs_cpu(trainer)
-    summary = {"rays_per_s": float(np.median(rates)), "psnr_first": first,
-               "psnr_last": last, "loss_last": losses[-1],
-               "budget_per_ray": trainer.rcfg.budget_per_ray,
-               "seconds": total, "profile": prof}
     return checks, launches, summary
 
 
-def train_vs_cpu(trainer) -> None:
+def family_phase(cfg: MNGPConfig, store: dict, dev, n_steps: int,
+                 label: str, profile: bool = False) -> tuple:
+    """A fresh trainer of cfg's family trained n_steps steps: finite
+    losses, exact launch counts, optionally a profiled step, and a 256-ray
+    card-vs-CPU step. Returns (trainer, launch counts, summary)."""
+    t0 = time.perf_counter()
+    trainer = new_trainer(cfg, store, dev)
+    launches, summary = fit(trainer, n_steps, label)
+    mb = trainer.tcfg.n_microbatch
+    check_launches(launches, cfg, n_steps, mb, label)
+    if profile:
+        summary["profile"] = profile_call(
+            lambda: trainer.train_step(tt.sample_batch(
+                trainer.gen, trainer.data, trainer.tcfg.batch_size)),
+            f"one {label} training step ({trainer.tcfg.batch_size} rays, "
+            f"{mb} microbatches)")
+    summary["encode_ms"] = encode_times(trainer, label)
+    train_vs_cpu(trainer, label=label)
+    summary["phase_seconds"] = time.perf_counter() - t0
+    return trainer, launches, summary
+
+
+def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
+                 loss_rtol: float = TRAIN_CPU_LOSS_RTOL,
+                 grad_rtol: float = TRAIN_CPU_GRAD_RTOL,
+                 label: str = "train") -> None:
     """One 256-ray step at full width on the card and on the CPU (plain
-    versions) from the trainer's parameters and state and the same draws:
-    loss, sample counts and every gradient leaf."""
+    versions) from the trainer's parameters and state and the same draws,
+    under `cfg` (default the trainer's): loss, sample counts and every
+    gradient leaf; the card's step launches the family's table-gradient
+    kernel once."""
+    cfg = cfg or trainer.cfg
     dev = trainer.data["directions"].device
     gen = torch.Generator(device=dev).manual_seed(3)
     batch = tt.sample_batch(gen, trainer.data, CPU_RAYS)
@@ -587,22 +848,30 @@ def train_vs_cpu(trainer) -> None:
         data = {k: move(v) for k, v in trainer.data.items()}
         b = {k: move(v) for k, v in batch.items()}
         vg = microbatched_value_and_grad(lambda p, bt: tt.loss_fn(
-            p, state, bt, data, trainer.cfg, trainer.rcfg, trainer.tcfg), 1)
+            p, state, bt, data, cfg, trainer.rcfg, trainer.tcfg), 1)
+        before = dict(kernels.launch_counts)
         (loss, aux), grads = vg(bundle, b)
         results.append((float(loss), {k: float(v) for k, v in aux.items()},
                         [g.cpu() for g in tree_leaves(grads)]))
+        if where == dev:
+            family = (cfg.hash_impl if cfg.cdtype == torch.bfloat16
+                      else "dedup")
+            kernel = FAMILY_KERNELS[family]
+            check(kernels.launch_counts[kernel] == before[kernel] + 1,
+                  f"{label}: the card step did not launch {kernel} once")
     (lg, ag, gg), (lc, ac, gc) = results
     worst = max(float((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
                 for a, c in zip(gg, gc))
-    print(f"[train] card vs CPU plain, one {CPU_RAYS}-ray step: loss "
-          f"{lg:.6f} vs {lc:.6f}, samples {ag['rm_samples']:.0f} vs "
+    print(f"[{label}] card vs CPU plain, one {CPU_RAYS}-ray step "
+          f"({cfg.hash_impl}, {cfg.compute_dtype}): loss {lg:.6f} vs "
+          f"{lc:.6f}, samples {ag['rm_samples']:.0f} vs "
           f"{ac['rm_samples']:.0f}, worst gradient leaf max|diff| / max|ref| "
-          f"{worst:.3g} over {len(gg)} leaves (tolerance loss "
-          f"{TRAIN_CPU_LOSS_RTOL} relative, leaves {TRAIN_CPU_GRAD_RTOL})")
+          f"{worst:.3g} over {len(gg)} leaves (tolerance loss {loss_rtol} "
+          f"relative, leaves {grad_rtol})")
     check(ag["rm_samples"] == ac["rm_samples"],
-          "card and CPU marched different samples")
-    check(abs(lg - lc) <= TRAIN_CPU_LOSS_RTOL * abs(lc), "card vs CPU loss")
-    check(worst <= TRAIN_CPU_GRAD_RTOL, "card vs CPU gradient leaves")
+          f"{label}: card and CPU marched different samples")
+    check(abs(lg - lc) <= loss_rtol * abs(lc), f"{label}: card vs CPU loss")
+    check(worst <= grad_rtol, f"{label}: card vs CPU gradient leaves")
 
 
 def main() -> None:
@@ -627,8 +896,8 @@ def main() -> None:
     # 2. build
     t0 = time.perf_counter()
     built = kernels.build(ptxas_info=True)
-    print(f"[build] {len(built)} kernels in "
-          f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    print(f"[build] {len(built)} sources ({len(kernels.KERNELS)} kernels) "
+          f"in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
     for name, (sec, log) in built.items():
         print(f"[build] {name}: {sec:.1f} s")
         for line in log.splitlines():
@@ -737,39 +1006,106 @@ def main() -> None:
     check(gpu["total_samples"] == cpu["total_samples"],
           "card and CPU marched different samples")
 
-    # 5. the training slice at full width
-    train_checks, train_launches, summary = train_phase(cfg, dev)
-    print(json.dumps({"train": summary}))
+    # the same 256 rays with hash_impl 'dedup': the tcnn-hash forward in
+    # PyTorch, no brick3 table packed and no brick3 kernel launched
+    cfg_d = dataclasses.replace(cfg, hash_impl="dedup")
+    kernels.reset_launch_counts()
+    gpu = render_rays_chunked(params, state, cfg_d, gate, dirs, pose, rcfg,
+                              chunk=CPU_RAYS)
+    torch.cuda.synchronize()
+    dedup_render_launches = dict(kernels.launch_counts)
+    cpu = render_rays_chunked(to_cpu(params), to_cpu(state), cfg_d,
+                              to_cpu(gate), dirs.cpu(), pose.cpu(), rcfg,
+                              chunk=CPU_RAYS)
+    diffs = {k: float((gpu[k].cpu() - cpu[k]).abs().max()) for k in CPU_TOL}
+    print(f"[render] dedup family, card vs CPU plain on {CPU_RAYS} rays: "
+          f"max|diff| {diffs} (tolerance {CPU_TOL}); samples "
+          f"{gpu['total_samples']} vs {cpu['total_samples']}; launches "
+          f"{dedup_render_launches}")
+    for k, tol in CPU_TOL.items():
+        check(diffs[k] <= tol, f"dedup render card vs CPU {k}: {diffs[k]}")
+    check(gpu["total_samples"] == cpu["total_samples"],
+          "dedup render: card and CPU marched different samples")
+    check(dedup_render_launches["brick3_encode_fwd"] == 0
+          and dedup_render_launches["occ_lookup"] > 0,
+          "dedup render launched a brick3 kernel")
 
-    # 6. kernels line: launches of the training run (this slice's main
-    # path, which runs all three) and of the render; ms, plain, library
-    # and bound at a training step 0 microbatch, the shape of most
-    # launches; max_abs_err the worst of every check, all in "checks"
-    sources = {
-        "occ_lookup": ("radnerf_tpu_torch/csrc/occ_lookup.cu",
-                       "radnerf_tpu/ops/marching.py:312"),
-        "brick3_encode_fwd": ("radnerf_tpu_torch/csrc/brick3_encode_fwd.cu",
-                              "radnerf_tpu/ops/hashgrid_brick3.py:257"),
-        "brick3_table_grad": ("radnerf_tpu_torch/csrc/brick3_table_grad.cu",
-                              "radnerf_tpu/ops/hashgrid_brick3.py:493"),
-    }
+    # 5. the training slice at full width
+    store = ray_store(cfg, dev)
+    train_checks, train_launches, summary = train_phase(cfg, store, dev)
+    print(json.dumps({"train": summary}))
+    phase_launches = {"render": launches, "train_brick3": train_launches}
+
+    # 6. the dedup family, and one float32 step
+    trainer_d, phase_launches["train_dedup"], summary_d = family_phase(
+        dataclasses.replace(cfg, hash_impl="dedup"), store, dev,
+        DEDUP_STEPS, "dedup", profile=True)
+    check(summary_d["psnr_last"] > summary_d["psnr_first"] + 3.0,
+          f"dedup psnr did not rise: {summary_d}")
+    train_vs_cpu(trainer_d, dataclasses.replace(
+        cfg, compute_dtype="float32", hash_impl="brick3"),
+        TRAIN_CPU_F32_LOSS_RTOL, TRAIN_CPU_F32_GRAD_RTOL, label="float32")
+    del trainer_d
+    print(json.dumps({"train_dedup": summary_d}))
+
+    # 7. short runs of the slab, brick and pallas families
+    for impl in ("slab", "brick", "pallas"):
+        _, phase_launches[f"train_{impl}"], summary_f = family_phase(
+            dataclasses.replace(cfg, hash_impl=impl), store, dev,
+            FAMILY_STEPS, impl)
+        print(json.dumps({f"train_{impl}": summary_f}))
+
+    # 8. kernels line: per kernel and contract, the launches of the path
+    # that runs it (its training phase; every phase's counts under
+    # launches_by_path); ms, plain, library and bound at a training step 0
+    # microbatch, the shape of most launches; max_abs_err the worst of
+    # every check, all in "checks"
+    rows = [
+        # (check key, kernel, source, replaced Pallas kernel, the wrapper
+        # whose contract it keeps, main path)
+        ("occ_lookup", "occ_lookup", "occ_lookup.cu",
+         "radnerf_tpu/ops/marching.py:312", "occupancy_lookup_bricks",
+         "train_brick3"),
+        ("brick3_encode_fwd", "brick3_encode_fwd", "brick3_encode_fwd.cu",
+         "radnerf_tpu/ops/hashgrid_brick3.py:257",
+         "hashgrid_encode_brick3_fwd_impl", "train_brick3"),
+        ("brick3_table_grad", "brick3_table_grad", "brick3_table_grad.cu",
+         "radnerf_tpu/ops/hashgrid_brick3.py:493",
+         "hashgrid_table_grad_brick3", "train_brick3"),
+        ("hashgrid_table_grad_window", "tcnn_table_grad",
+         "stream_table_grad.cu", "radnerf_tpu/ops/hashgrid_window.py:57",
+         "sorted_table_grad_window", "train_dedup"),
+        ("sorted_table_grad_window_pair", "slab_table_grad",
+         "stream_table_grad.cu", "radnerf_tpu/ops/hashgrid_window.py:244",
+         "sorted_table_grad_window_pair", "train_slab"),
+        ("sorted_table_grad_brick", "brick_table_grad",
+         "stream_table_grad.cu", "radnerf_tpu/ops/hashgrid_brick.py:264",
+         "sorted_table_grad_brick", "train_brick"),
+        ("hashgrid_table_grad", "tcnn_table_grad", "stream_table_grad.cu",
+         "radnerf_tpu/ops/hashgrid_pallas.py:41", "hashgrid_table_grad",
+         "train_pallas"),
+    ]
     recs = []
-    for name, (source, replaces) in sources.items():
-        check(train_launches[name] > 0, f"kernel {name} not launched")
-        runs = train_checks[name] + (
-            [render_checks[name]] if name in render_checks else [])
+    for key, name, source, replaces, contract, path in rows:
+        n_launch = phase_launches[path][name]
+        check(n_launch > 0, f"kernel {name} not launched on {path}")
+        runs = train_checks[key] + (
+            [render_checks[key]] if key in render_checks else [])
         main_rec = runs[0]
         recs.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": train_launches[name],
-            "launches_by_path": {"train": train_launches[name],
-                                 "render": launches[name]},
+            "name": name, "route": "cuda",
+            "source": f"radnerf_tpu_torch/csrc/{source}",
+            "replaces": replaces, "contract": contract,
+            "launches": n_launch, "main_path": path,
+            "launches_by_path": {p: c[name]
+                                 for p, c in phase_launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in runs),
             **{k: main_rec[k] for k in ("shape", "ms", "plain_ms",
                                         "library_ms", "bound_ms",
                                         "bound_by")},
             "checks": runs, "ok": True,
         })
+    print(f"[done] {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,10 @@ tensors it launches the kernel.
 
 Ported so far: the Rad-NeRF MoE test-time render (`render.ml_render.
 ml_render_test`) and one MoE training step with its density-grid update
-(`train.trainer.Trainer`), both with union sampling, the flat layout and
-the brick3 hash encode.
+(`train.trainer.Trainer`), both with union sampling and the flat layout,
+in bfloat16 or float32, with every hash-grid family that `hash_impl`
+selects (`ops.hashgrid.encode_dispatch`: the tcnn hash, slab, brick,
+brick3).
 """
 
 DEFAULT_DEVICE = "cuda"

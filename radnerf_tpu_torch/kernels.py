@@ -1,11 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each kernel is one source in `csrc/` with a plain C entry point. It is
-compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
-`_build/` (git-ignored) at first use, and called through `ctypes`: no
-PyTorch headers, so a build takes seconds. A library's file name carries
-a hash of its source, the shared headers (`csrc/*.cuh`) and the flags,
-so an edited source or header is rebuilt.
+Each kernel is a plain C entry point of a source in `csrc/` (one source
+may hold several). A source is compiled by `nvcc` for Hopper (`sm_90a`)
+into a shared library under `_build/` (git-ignored) at first use, and
+its entry points are called through `ctypes`: no PyTorch headers, so a
+build takes seconds. A library's file name carries a hash of its source,
+the shared headers (`csrc/*.cuh`) and the flags, so an edited source or
+header is rebuilt.
 
 Every entry point takes raw device pointers and the CUDA stream, launches
 on that stream without synchronising, and returns `cudaGetLastError()`;
@@ -61,6 +62,11 @@ KERNELS = {
         "occ_lookup.cu",
         (_P, _P, _P, _P, _I64, _I32, _I32, _F32, _P),
     ),
+    # (keys, vals, out, n, n_levels, table_size, stream): the tcnn, slab
+    # and brick table gradients, one source
+    **{name: ("stream_table_grad.cu", (_P, _P, _P, _I64, _I32, _I64, _P))
+       for name in ("tcnn_table_grad", "slab_table_grad",
+                    "brick_table_grad")},
 }
 
 # launches per kernel since the last reset (see reset_launch_counts)
@@ -87,46 +93,47 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / KERNELS[name][0]).read_bytes()
+def library_path(source: str) -> Path:
+    src = (CSRC / source).read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest[:12]}.so"
 
 
 def build(names=None, ptxas_info: bool = False) -> dict:
-    """Compile the named kernels (default: all) that are not built yet,
-    one nvcc process per source, all started together. Returns
-    {name: (seconds, nvcc stderr)}; raises if any build fails."""
+    """Compile the sources of the named kernels (default: all) that are
+    not built yet, one nvcc process per source, all started together.
+    Returns {source: (seconds, nvcc stderr)}; raises if any build fails."""
     names = list(KERNELS) if names is None else list(names)
-    todo = [n for n in names if not library_path(n).exists()]
+    sources = dict.fromkeys(KERNELS[n][0] for n in names)
+    todo = [s for s in sources if not library_path(s).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for name in todo:
-        out = library_path(name)
+    for source in todo:
+        out = library_path(source)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [nvcc, *NVCC_FLAGS]
         if ptxas_info:
             cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", tmp, str(CSRC / KERNELS[name][0])]
-        procs[name] = (
+        cmd += ["-o", tmp, str(CSRC / source)]
+        procs[source] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True),
             tmp, out, time.perf_counter(),
         )
     done, failed = {}, []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for source, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
-        done[name] = (time.perf_counter() - t0, log)
+        done[source] = (time.perf_counter() - t0, log)
         if proc.returncode == 0:
             os.replace(tmp, out)
         else:
             os.unlink(tmp)
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            failed.append(f"{source}: nvcc exit {proc.returncode}\n{log}")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return done
@@ -136,7 +143,7 @@ def _entry_point(name: str):
     fn = _entry.get(name)
     if fn is None:
         build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(library_path(KERNELS[name][0])))
         fn = getattr(lib, name)
         fn.argtypes = KERNELS[name][1]
         fn.restype = ctypes.c_int

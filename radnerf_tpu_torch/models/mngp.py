@@ -11,11 +11,10 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DEVICE
-from ..ops.hashgrid import init_hashgrid_table
-from ..ops.hashgrid_brick3 import (
-    hashgrid_encode_brick3, hashgrid_encode_brick3_fwd_impl,
-    pack_brick3_table,
+from ..ops.hashgrid import (
+    encode_dispatch, incoherent_impl, init_hashgrid_table, uses_brick3,
 )
+from ..ops.hashgrid_brick3 import pack_brick3_table
 from ..ops.trunc_exp import trunc_exp
 from .mlp import apply_mlp, init_stacked_mlp, slice_stacked
 from .ngp import NGPConfig, update_density_grid
@@ -70,41 +69,27 @@ def init_mngp_state(cfg: MNGPConfig, bbox: np.ndarray | None = None,
     }
 
 
-# hash_impl -> brick3 forward mode ('auto' is brick3 on an accelerator)
-_BRICK3_MODES = {"auto": "runs", "brick3": "runs", "brick3_plain": "plain"}
+def pack_for_encode(params: dict, cfg: MNGPConfig,
+                    impl: str | None = None) -> torch.Tensor | None:
+    """The hash table packed once for many encodes of `impl` (default
+    cfg.hash_impl): pack_brick3_table when the encode is brick3's, None for
+    every other family (they take the (L, T, 2) table as it is)."""
+    if uses_brick3(impl or cfg.hash_impl, cfg.cdtype):
+        return pack_brick3_table(params["hash_table"])
+    return None
 
 
 def _encode(params, state, cfg: MNGPConfig, x: torch.Tensor,
             impl: str | None = None, packed: torch.Tensor | None = None):
-    """World positions (N, 3) -> (N, L*2) hash features.
-
-    `packed` is the table already packed by pack_brick3_table (callers
-    that encode many batches pack once). A table that requires a gradient
-    goes through the differentiable encode (its backward is the brick3
-    table-gradient kernel)."""
+    """World positions (N, 3) -> (N, L*2) hash features through
+    encode_dispatch (differentiable in the table: each family's backward
+    is its table-gradient kernel). `packed` is pack_for_encode's table
+    (callers that encode many batches pack once)."""
     _require_shared(cfg)
-    impl = impl or cfg.hash_impl
-    if impl not in _BRICK3_MODES:
-        raise NotImplementedError(
-            f"hash_impl {impl!r}: the port has the brick3 family only; "
-            "the other families are queued in ROADMAP.md (port queue 1, "
-            "'Off the main path')"
-        )
-    if cfg.cdtype != torch.bfloat16:
-        raise NotImplementedError(
-            "brick3 is bfloat16-only; the float32 encode (the reference's "
-            "fallback to the tcnn-hash 'dedup' family) is queued in "
-            "ROADMAP.md"
-        )
     xn = (x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
     xn = xn.clamp(0.0, 1.0)
-    table = params["hash_table"]
-    if table.requires_grad and torch.is_grad_enabled():
-        return hashgrid_encode_brick3(table, xn, cfg.hash,
-                                      _BRICK3_MODES[impl], packed=packed)
-    return hashgrid_encode_brick3_fwd_impl(
-        table, xn, cfg.hash, _BRICK3_MODES[impl], packed=packed,
-    )
+    return encode_dispatch(params["hash_table"], xn, cfg.hash, cfg.cdtype,
+                           impl or cfg.hash_impl, packed=packed)
 
 
 def mngp_density_expert(params, state, cfg: MNGPConfig, x: torch.Tensor,
@@ -134,10 +119,12 @@ def mngp_update_density_grids(
     draws: list | None = None,
 ) -> dict:
     """Update all K per-expert grids, one expert after another; the
-    density pass takes the 'brick3_plain' forward (grid cells are
-    spatially incoherent) on a table packed once for all experts.
-    `draws[k]` are expert k's explicit draws (see update_density_grid)."""
-    packed = pack_brick3_table(params["hash_table"])
+    density pass takes incoherent_impl(cfg.hash_impl), the plain-forward
+    variant of the family (grid cells are spatially incoherent), on a
+    table packed once for all experts. `draws[k]` are expert k's explicit
+    draws (see update_density_grid)."""
+    impl = incoherent_impl(cfg.hash_impl)
+    packed = pack_for_encode(params, cfg, impl)
     grids, occs = [], []
     for k in range(cfg.n_experts):
         sub_state = {**state, "density_grid": state["density_grid"][k],
@@ -145,8 +132,7 @@ def mngp_update_density_grids(
         new = update_density_grid(
             params, sub_state, cfg, gen, density_threshold, warmup,
             lambda x, k=k: mngp_density_expert(params, state, cfg, x, k,
-                                               impl="brick3_plain",
-                                               packed=packed),
+                                               impl=impl, packed=packed),
             decay, None if draws is None else draws[k],
         )
         grids.append(new["density_grid"])

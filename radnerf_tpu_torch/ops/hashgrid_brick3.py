@@ -35,8 +35,9 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .fma import fma32
-from .hashgrid import HashGridConfig, _cm_out
+from .hashgrid import (
+    _M32, HashGridConfig, _cm_out, _geometry, _mul32, table_grad_encode,
+)
 
 LANES = 128
 PATCH = 4           # owned cells per patch axis
@@ -47,7 +48,6 @@ _MIX2 = 805459861
 _MIX3 = 3674653429
 _SALT = 0x9E3779B9
 _FMIX = 0x85EBCA6B
-_M32 = 0xFFFFFFFF
 
 # corner lane offsets, (dz, dy, dx)-minor order: off = dx + 5 dy + 25 dz
 _OFFS3 = tuple(
@@ -79,14 +79,6 @@ def brick3_addrs(cfg: HashGridConfig) -> list[_Brick3Addr]:
         else:
             out.append(_Brick3Addr(lvl, res, False, np_, R))
     return out
-
-
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2^32 for int64 a in [0, 2^32) without int64 overflow:
-    the constant is split into 16-bit halves (each product < 2^48)."""
-    lo = a * (c & 0xFFFF)
-    hi = (a * (c >> 16)) & 0xFFFF
-    return (lo + (hi << 16)) & _M32
 
 
 def _brick3_row(a: _Brick3Addr, px, py, pz, R: int) -> torch.Tensor:
@@ -129,17 +121,6 @@ def _corner_weights(frac_l):
         wx[dx] * wy[dy] * wz[dz]
         for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)
     )
-
-
-def _geometry(x: torch.Tensor, cfg: HashGridConfig, levels: list[int]):
-    """floor coords (3 x (G, N) int32) + frac ((G, 3, N) f32), with
-    pos = fma(x, scale, 0.5) as in the jitted reference."""
-    scales = torch.as_tensor(cfg.level_scales()[levels], device=x.device)
-    pos = fma32(x.T[None, :, :], scales[:, None, None], 0.5)
-    pos_i = torch.floor(pos)
-    frac = pos - pos_i
-    pos_i = pos_i.to(torch.int32)
-    return pos_i[:, 0], pos_i[:, 1], pos_i[:, 2], frac
 
 
 def _unpack_bf16(g: torch.Tensor):
@@ -356,22 +337,6 @@ def hashgrid_table_grad_brick3(
     return _table_grad_plain(x, g, cfg)
 
 
-class _EncodeBrick3(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, x, cfg, fw_mode, packed):
-        ctx.cfg = cfg
-        ctx.save_for_backward(x)
-        return hashgrid_encode_brick3_fwd_impl(table, x, cfg, fw_mode,
-                                               packed=packed)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        dtable = hashgrid_table_grad_brick3(
-            x, g.to(torch.float32).contiguous(), ctx.cfg)
-        return dtable, None, None, None, None
-
-
 def hashgrid_encode_brick3(
     table: torch.Tensor,
     x: torch.Tensor,
@@ -383,4 +348,8 @@ def hashgrid_encode_brick3(
     `hashgrid_encode_brick3_fwd_impl`, the backward
     `hashgrid_table_grad_brick3`. No gradient reaches x (the reference's
     ray-marcher position gradients are never consumed)."""
-    return _EncodeBrick3.apply(table, x.detach(), cfg, fw_mode, packed)
+    return table_grad_encode(
+        table, x,
+        lambda t, v: hashgrid_encode_brick3_fwd_impl(t, v, cfg, fw_mode,
+                                                     packed=packed),
+        lambda v, g: hashgrid_table_grad_brick3(v, g, cfg))

@@ -19,11 +19,10 @@ import torch
 
 from ..models.gates import apply_ray_gate
 from ..models.mlp import apply_mlp
-from ..models.mngp import MNGPConfig, _encode
+from ..models.mngp import MNGPConfig, _encode, pack_for_encode
 from ..models.ngp import scene_center_half
 from ..ops.compositing import composite_test_flat, composite_train_flat
 from ..ops.fma import fma32
-from ..ops.hashgrid_brick3 import pack_brick3_table
 from ..ops.intersection import scene_near_far
 from ..ops.marching import (
     march_rays_test_flat, march_rays_union_flat, occupancy_lookup,
@@ -167,7 +166,7 @@ def _ml_test_union_flat(
     mcfg = rcfg.march(cfg)
     occ_union = state["occ"].any(dim=0).contiguous()
     d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
-    packed = pack_brick3_table(params["hash_table"])   # once per call
+    packed = pack_for_encode(params, cfg)               # once per call
     # per-ray samples_done retirement bounds real progress; max_iters is
     # the reference's safety valve
     max_iters = min(

@@ -2,8 +2,9 @@
 radnerf_tpu/train/trainer.py; the NeRFSystem shell, data loaders,
 logging, validation and checkpoints are queued in ROADMAP.md).
 
-The step: gate, one union march, one shared brick3 encode, per-expert
-MLPs and flat compositing, nerf_loss, backward, Adam (eps 1e-15) at the
+The step: gate, one union march, one shared hash encode (the family of
+`MNGPConfig.hash_impl` and `compute_dtype`), per-expert MLPs and flat
+compositing, nerf_loss, backward, Adam (eps 1e-15) at the
 cosine learning rate. Beside it the density grids are updated every 16
 steps (every cell below `warmup_steps`) and the flat-layout sample
 budget is re-picked from the measured buffer utilization (the

@@ -14,6 +14,7 @@ from radnerf_tpu_torch import kernels
 from radnerf_tpu_torch.ops import hashgrid as thg
 from radnerf_tpu_torch.ops import hashgrid_brick3 as tb3
 from radnerf_tpu_torch.ops import marching as tm
+from radnerf_tpu_torch.ops import stream_table_grad as tsg
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +105,76 @@ def test_encode_autograd_launches_both_brick3_kernels(dev):
     assert kernels.launch_counts["brick3_table_grad"] == bwd + 1
     ref = tb3._table_grad_plain(x, torch.ones((999, 8), device=dev), cfg)
     torch.testing.assert_close(table.grad, ref, rtol=1e-5, atol=1e-5)
+
+
+def _order_tol(name, keys, vals, T):
+    """2 (n - 1) u sum|terms| per entry: atomics add the same f32 terms
+    in an order that changes from run to run."""
+    L = keys.shape[0]
+    flat, terms = tsg.stream_terms(name, keys, vals, T)
+    abs_sum = torch.zeros((L * T, 2), device=keys.device).index_add_(
+        0, flat, terms.abs())
+    count = torch.zeros((L * T, 2), device=keys.device).index_add_(
+        0, flat, (terms != 0).float())
+    return (2 * (count - 1).clamp_min(1) * 2.0**-24 * abs_sum).reshape(
+        L, T, 2), count
+
+
+@pytest.mark.parametrize("name", list(tsg.OFFSETS))
+def test_stream_table_grad_kernel_equals_plain(dev, name):
+    L, n, T = 5, 40000, 1 << 12
+    gen = torch.Generator().manual_seed(4)
+    keys = torch.randint(0, 64, (L, n), generator=gen, dtype=torch.int32)
+    if name == "brick_table_grad":          # row * 128 + lane0
+        lane0 = (torch.randint(0, 10, (L, n), generator=gen)
+                 + 11 * torch.randint(0, 10, (L, n), generator=gen))
+        keys = (torch.randint(0, 2, (L, n), generator=gen) * 128
+                + lane0).int()
+    else:                                   # slab drops the k + 1 == T half
+        keys[:, :50] = T - 1
+    vals = torch.randn((2 * len(tsg.OFFSETS[name]), L, n), generator=gen)
+    vals[:, :, 100:300] = 0.0               # masked entries add nothing
+    kd, vd = keys.to(dev), vals.to(dev)
+    before = kernels.launch_counts[name]
+    got = tsg.stream_table_grad(name, kd, vd, T)
+    assert kernels.launch_counts[name] == before + 1
+    ref = tsg.stream_table_grad_plain(name, kd, vd, T)
+    tol, count = _order_tol(name, kd, vd, T)
+    assert got.shape == (L, T, 2) and got.dtype == torch.float32
+    assert ((got - ref).abs() <= tol).all()
+    assert count.max() >= 100
+    # the same stream on the CPU twin: the card adds what the CPU adds
+    cpu = tsg.stream_table_grad_plain(name, keys, vals, T)
+    assert ((got.cpu() - cpu).abs() <= tol.cpu()).all()
+    with pytest.raises(ValueError):
+        tsg.stream_table_grad(name, kd.long(), vd, T)
+    with pytest.raises(ValueError):
+        tsg.stream_table_grad(name, kd, vd[:1].contiguous(), T)
+
+
+@pytest.mark.parametrize("impl,kernel", [
+    ("dedup", "tcnn_table_grad"), ("window", "tcnn_table_grad"),
+    ("pallas", "tcnn_table_grad"), ("slab", "slab_table_grad"),
+    ("brick", "brick_table_grad")])
+def test_family_backward_launches_its_kernel(dev, impl, kernel):
+    cfg = thg.HashGridConfig(n_levels=6, log2_table_size=13,
+                             base_resolution=4, per_level_scale=2.0)
+    gen = torch.Generator().manual_seed(5)
+    table = (torch.rand((6, 1 << 13, 2), generator=gen) - 0.5)
+    x = torch.rand((3000, 3), generator=gen)
+    g = torch.randn((3000, 12), generator=gen)
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        t = table.to(where).requires_grad_(True)
+        before = dict(kernels.launch_counts)
+        out = thg.encode_dispatch(t, x.to(where), cfg, torch.bfloat16, impl)
+        (out.float() * g.to(where)).sum().backward()
+        if where == dev:
+            assert kernels.launch_counts[kernel] == before[kernel] + 1
+            assert all(kernels.launch_counts[k] == before[k]
+                       for k in before if k != kernel)
+            fwd = out.cpu()
+        else:
+            assert torch.equal(fwd, out)      # the forward is plain PyTorch
+        grads.append(t.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)

@@ -184,13 +184,20 @@ def test_encode_dispatch_modes_and_refusals():
     auto = _encode(params, state, cfg, x, impl="auto")
     assert torch.equal(runs, plain) and torch.equal(runs, auto)
     assert runs.shape == (300, 8)
+    # every other family now encodes (tests/test_torch_hashgrid_tcnn.py
+    # holds each against JAX); brick3 in float32 is the 'dedup' encode
     for impl in ("xla", "dedup", "window", "slab", "brick", "sort"):
-        with pytest.raises(NotImplementedError):
-            _encode(params, state, cfg, x, impl=impl)
+        assert _encode(params, state, cfg, x, impl=impl).shape == (300, 8)
     f32 = MNGPConfig(scale=0.5, grid_size=32, n_levels=4, log2_T=12,
                      hash_impl="brick3")
-    with pytest.raises(NotImplementedError):
-        _encode(params, state, f32, x)
+    assert torch.equal(_encode(params, state, f32, x),
+                       _encode(params, state, f32, x, impl="dedup"))
     with pytest.raises(ValueError):
         tb3.hashgrid_encode_brick3_fwd_impl(params["hash_table"], x,
                                             cfg.hash, fw_mode="dedup")
+    with pytest.raises(ValueError):
+        _encode(params, state, cfg, x, impl="nope")
+    unshared = MNGPConfig(scale=0.5, grid_size=32, n_levels=4, log2_T=12,
+                          compute_dtype="bfloat16", shared_encoder=False)
+    with pytest.raises(NotImplementedError):
+        _encode(params, state, unshared, x)
