@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Rad-NeRF MoE render and training on one
-NVIDIA GPU.
+"""Drive the PyTorch port's Rad-NeRF MoE render and training, and its
+examples' microbenchmark kernels, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -56,9 +56,18 @@ CPU fallback):
      (FAMILY_STEPS steps each): finite losses, exact launch counts of
      their kernels, the encode alone timed, and a 256-ray card-vs-CPU
      step each;
-  8. a JSON line with every kernel's check, launches (per phase), times
+  8. the examples' kernels: bench_vmem_gather and proto_pallas_gather
+     run at their default sizes (4,194,304 words from a (4096, 128) table;
+     2^20 rows gathered from and added into a (2^19, 2) table), launch
+     counts reset just before and read just after; then each of their four
+     kernels against its plain twin at those sizes (the three gathers
+     bit-equal, the scatter within its f32 order bound), median times of
+     kernel, twin and library call, and the device time of kernel and
+     library call without host gaps (CUDA graphs); then profile_step at
+     its defaults (the dedup step split into its parts);
+  9. a JSON line with every kernel's check, launches (per phase), times
      and bound;
-  9. the last line: {"ok": true, "device": {...}}.
+ 10. the last line: {"ok": true, "device": {...}}.
 
 Phase 4 also renders 256 rays with hash_impl 'dedup' on the card and on
 the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
@@ -75,6 +84,9 @@ import numpy as np
 import torch
 
 from radnerf_tpu_torch import kernels
+from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
+from radnerf_tpu_torch.examples import profile_step
+from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
 from radnerf_tpu_torch.models.gates import init_ray_gate
 from radnerf_tpu_torch.models.mngp import MNGPConfig, init_mngp, init_mngp_state
 from radnerf_tpu_torch.models.ngp import (
@@ -558,6 +570,9 @@ def print_check(name: str, rec: dict) -> None:
              if "max_err_over_tol" in rec else "")
     if "zero_fill_ms" in rec:
         extra += f", zero-fill {rec['zero_fill_ms']:.4f} ms"
+    if "device_ms" in rec:
+        extra += (f"; on the device (CUDA graph) {rec['device_ms']:.4f} ms, "
+                  f"library {rec['library_device_ms']:.4f} ms")
     if "contract_ms" in rec:
         extra += (f", contract {rec['contract']} in "
                   f"{rec['contract_ms']:.4f} ms")
@@ -566,6 +581,132 @@ def print_check(name: str, rec: dict) -> None:
           f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
           f"{rec['library_ms']}, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})")
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of fn without the host time between calls:
+    `reps` calls captured in a CUDA graph, one replay timed by CUDA
+    events, divided by reps. (An event pair around a single call of a
+    ~10 us kernel also counts the wrapper's Python and ctypes time.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                              # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gather_check(name: str, fn, plain, library, args, n_bytes: int,
+                 shape: str) -> dict:
+    """A gather kernel of the examples against its plain twin (must be
+    bit-equal), with the times of the kernel's wrapper, of the twin and of
+    one PyTorch call for the same gather, the wrapper's and the library
+    call's device time alone (graph_ms), and the bytes bound."""
+    got, ref = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"{name} kernel != plain twin")
+    rec = {
+        "at": "examples (the script's default size)", "check": "bit-equal",
+        "max_abs_err": float((got.double() - ref.double()).abs().max()),
+        "shape": shape,
+        "ms": median_ms(lambda: fn(*args)),
+        "device_ms": graph_ms(lambda: fn(*args)),
+        "plain_ms": median_ms(lambda: plain(*args)),
+        "library_ms": median_ms(library),
+        "library_device_ms": graph_ms(library),
+    }
+    rec.update(bound(n_bytes, 0))
+    return rec
+
+
+def examples_phase(dev) -> tuple:
+    """Phase 8: bench_vmem_gather and proto_pallas_gather run at their
+    default sizes (their kernels' launches counted), then each of their
+    four kernels against its plain twin at those sizes; then profile_step
+    at its defaults. Returns ({kernel: check record}, launch counts of the
+    two scripts' runs, profile_step's times)."""
+    E, R = tvg.ELEMS, tvg.R
+    T, M = tpg.T, tpg.M
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tvg.run(E, R, device=dev)
+    tpg.run(T, M, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    print(f"[examples] launches of the two scripts' runs: {launches}")
+
+    x = tvg.make_inputs(E, R, dev)
+    tbl, rows_l = x["tbl"], x["rows2d"].long()
+    flat_l = ((x["row"].long() << 7) | x["lane"].long()).reshape(-1)
+    idx_bytes = E * 4                                  # one int32 index each
+    recs = {
+        "tal_sublane": gather_check(
+            "tal_sublane", tvg.tal_sublane, tvg.tal_sublane_plain,
+            # take_along_axis over the rows (int64 indices, as torch takes)
+            lambda: torch.gather(tbl, 0, rows_l), (tbl, x["rows2d"]),
+            R * 128 * 4 + idx_bytes + E * 4,
+            f"E={E} words from a ({R}, 128) int32 table"),
+        "rowgather_onehot": gather_check(
+            "rowgather_onehot", tvg.rowgather_onehot,
+            tvg.rowgather_onehot_plain,
+            lambda: torch.take(tbl, flat_l), (tbl, x["row"], x["lane"]),
+            R * 128 * 4 + 2 * idx_bytes + E * 4,
+            f"E={E} words (row, lane) from a ({R}, 128) int32 table"),
+    }
+    del x, rows_l, flat_l
+    p = tpg.make_inputs(T, M, dev)
+    table, idx, vals = p["table"], p["idx"], p["vals"]
+    recs["pallas_gather"] = gather_check(
+        "pallas_gather", tpg.pallas_gather, tpg.pallas_gather_plain,
+        lambda: torch.index_select(table, 0, idx), (table, idx),
+        M * 4 + M * 8 + T * 8, f"M={M} rows from a ({T}, 2) f32 table")
+
+    got = tpg.pallas_scatter(idx, vals, T)
+    ref = tpg.pallas_scatter_plain(idx, vals, T)
+    tol = tpg.scatter_order_bound(idx, vals, T)
+    err = (got - ref).abs()
+    torch.cuda.synchronize()
+    check(bool((err <= tol).all()), f"pallas_scatter kernel vs plain: "
+                                    f"max|diff| {float(err.max())}")
+    rec = recs["pallas_scatter"] = {
+        "at": "examples (the script's default size)",
+        "check": "within 2 (n - 1) 2^-24 sum|terms| per entry (atomic "
+                 "summation order)",
+        "max_abs_err": float(err.max()),
+        "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
+        "shape": f"M={M} (row, 2) updates into a ({T}, 2) f32 table",
+        "ms": median_ms(lambda: tpg.pallas_scatter(idx, vals, T)),
+        # the zero-fill and the atomics
+        "device_ms": graph_ms(lambda: tpg.pallas_scatter(idx, vals, T)),
+        "plain_ms": median_ms(lambda: tpg.pallas_scatter_plain(idx, vals,
+                                                               T)),
+        "library_ms": median_ms(lambda: torch.zeros(
+            (T, 2), device=dev).index_add_(0, idx, vals)),
+        "library_device_ms": graph_ms(lambda: torch.zeros(
+            (T, 2), device=dev).index_add_(0, idx, vals)),
+    }
+    # idx and vals read once, the table written once; two f32 adds an update
+    rec.update(bound(M * 4 + M * 8 + T * 8, 2 * M))
+    for name, r in recs.items():
+        print_check(name, r)
+    del p, table, idx, vals, got, ref, tol, err
+
+    t0 = time.perf_counter()
+    prof = profile_step.run(device=dev)
+    print(f"[examples] profile_step at its defaults in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return recs, launches, {k: 1e3 * v for k, v in prof.items()}
 
 
 def microbatch(trainer) -> dict:
@@ -1055,11 +1196,17 @@ def main() -> None:
             FAMILY_STEPS, impl)
         print(json.dumps({f"train_{impl}": summary_f}))
 
-    # 8. kernels line: per kernel and contract, the launches of the path
-    # that runs it (its training phase; every phase's counts under
-    # launches_by_path); ms, plain, library and bound at a training step 0
-    # microbatch, the shape of most launches; max_abs_err the worst of
-    # every check, all in "checks"
+    # 8. the examples' gather and scatter kernels, and the step's profile
+    example_checks, phase_launches["examples"], profile_ms = examples_phase(
+        dev)
+    print(json.dumps({"profile_step_ms": profile_ms}))
+
+    # 9. kernels line: per kernel and contract, the launches of the path
+    # that runs it (its training phase, or the examples'; every phase's
+    # counts under launches_by_path); ms, plain, library and bound at a
+    # training step 0 microbatch, the shape of most launches (the
+    # examples' kernels: at their scripts' default size); max_abs_err the
+    # worst of every check, all in "checks"
     rows = [
         # (check key, kernel, source, replaced Pallas kernel, the wrapper
         # whose contract it keeps, main path)
@@ -1084,13 +1231,24 @@ def main() -> None:
         ("hashgrid_table_grad", "tcnn_table_grad", "stream_table_grad.cu",
          "radnerf_tpu/ops/hashgrid_pallas.py:41", "hashgrid_table_grad",
          "train_pallas"),
+        ("tal_sublane", "tal_sublane", "vmem_gather.cu",
+         "examples/bench_vmem_gather.py:54", "tal_sublane", "examples"),
+        ("rowgather_onehot", "rowgather_onehot", "vmem_gather.cu",
+         "examples/bench_vmem_gather.py:72", "rowgather_onehot",
+         "examples"),
+        ("pallas_gather", "pallas_gather", "proto_gather.cu",
+         "examples/proto_pallas_gather.py:52", "pallas_gather", "examples"),
+        ("pallas_scatter", "pallas_scatter", "proto_gather.cu",
+         "examples/proto_pallas_gather.py:84", "pallas_scatter",
+         "examples"),
     ]
     recs = []
     for key, name, source, replaces, contract, path in rows:
         n_launch = phase_launches[path][name]
         check(n_launch > 0, f"kernel {name} not launched on {path}")
-        runs = train_checks[key] + (
-            [render_checks[key]] if key in render_checks else [])
+        runs = train_checks.get(key, []) + [
+            checks[key] for checks in (render_checks, example_checks)
+            if key in checks]
         main_rec = runs[0]
         recs.append({
             "name": name, "route": "cuda",
@@ -1100,9 +1258,11 @@ def main() -> None:
             "launches_by_path": {p: c[name]
                                  for p, c in phase_launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in runs),
-            **{k: main_rec[k] for k in ("shape", "ms", "plain_ms",
-                                        "library_ms", "bound_ms",
-                                        "bound_by")},
+            **{k: main_rec[k] for k in ("shape", "ms", "device_ms",
+                                        "plain_ms", "library_ms",
+                                        "library_device_ms", "bound_ms",
+                                        "bound_by")
+               if k in main_rec},
             "checks": runs, "ok": True,
         })
     print(f"[done] {time.perf_counter() - T_START:.1f} s in all")

@@ -67,6 +67,16 @@ KERNELS = {
     **{name: ("stream_table_grad.cu", (_P, _P, _P, _I64, _I32, _I64, _P))
        for name in ("tcnn_table_grad", "slab_table_grad",
                     "brick_table_grad")},
+    # the examples' microbenchmark kernels (radnerf_tpu_torch/examples/)
+    # (tbl, rows, out, n, n_rows, stream)
+    "tal_sublane": ("vmem_gather.cu", (_P, _P, _P, _I64, _I32, _P)),
+    # (tbl, row, lane, out, n, n_rows, stream)
+    "rowgather_onehot": ("vmem_gather.cu",
+                         (_P, _P, _P, _P, _I64, _I32, _P)),
+    # (table, idx, out, m, t, stream)
+    "pallas_gather": ("proto_gather.cu", (_P, _P, _P, _I64, _I64, _P)),
+    # (idx, vals, out, m, t, stream)
+    "pallas_scatter": ("proto_gather.cu", (_P, _P, _P, _I64, _I64, _P)),
 }
 
 # launches per kernel since the last reset (see reset_launch_counts)

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from radnerf_tpu_torch import kernels
+from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
+from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
 from radnerf_tpu_torch.ops import hashgrid as thg
 from radnerf_tpu_torch.ops import hashgrid_brick3 as tb3
 from radnerf_tpu_torch.ops import marching as tm
@@ -178,3 +180,44 @@ def test_family_backward_launches_its_kernel(dev, impl, kernel):
             assert torch.equal(fwd, out)      # the forward is plain PyTorch
         grads.append(t.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+def test_vmem_gather_kernels_equal_plain(dev):
+    x = tvg.make_inputs(128 * 517, 300, dev, seed=6)
+    x["rows2d"][0, :5] = torch.tensor([0, 299, 150, 299, 0])
+    for name, fn, plain, args in (
+            ("tal_sublane", tvg.tal_sublane, tvg.tal_sublane_plain,
+             (x["tbl"], x["rows2d"])),
+            ("rowgather_onehot", tvg.rowgather_onehot,
+             tvg.rowgather_onehot_plain, (x["tbl"], x["row"], x["lane"]))):
+        before = kernels.launch_counts[name]
+        got = fn(*args)
+        assert kernels.launch_counts[name] == before + 1
+        assert got.dtype == torch.int32 and got.shape == args[1].shape
+        assert torch.equal(got, plain(*args))
+        assert torch.equal(got.cpu(), fn(*(a.cpu() for a in args)))
+    with pytest.raises(ValueError):
+        tvg.tal_sublane(x["tbl"], x["rows2d"].long())
+
+
+def test_proto_gather_kernels_equal_plain(dev):
+    n_rows, m = 5000, 200_003
+    x = tpg.make_inputs(n_rows, m, dev)
+    x["idx"][:1000] = 17                          # one row hit 1000+ times
+    before = kernels.launch_counts["pallas_gather"]
+    got = tpg.pallas_gather(x["table"], x["idx"])
+    assert kernels.launch_counts["pallas_gather"] == before + 1
+    assert torch.equal(got, tpg.pallas_gather_plain(x["table"], x["idx"]))
+    before = kernels.launch_counts["pallas_scatter"]
+    got = tpg.pallas_scatter(x["idx"], x["vals"], n_rows)
+    assert kernels.launch_counts["pallas_scatter"] == before + 1
+    # atomics add the same f32 terms in an order that changes from run to
+    # run: within 2 (n - 1) u sum|terms| per entry, of the card's twin and
+    # of the CPU's
+    bound = tpg.scatter_order_bound(x["idx"], x["vals"], n_rows)
+    ref = tpg.pallas_scatter_plain(x["idx"], x["vals"], n_rows)
+    assert ((got - ref).abs() <= bound).all()
+    cpu = tpg.pallas_scatter(x["idx"].cpu(), x["vals"].cpu(), n_rows)
+    assert ((got.cpu() - cpu).abs() <= bound.cpu()).all()
+    with pytest.raises(ValueError):
+        tpg.pallas_scatter(x["idx"], x["vals"].double(), n_rows)

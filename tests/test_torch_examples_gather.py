@@ -1,0 +1,196 @@
+"""The examples' gather and scatter kernels (Pallas kernels 8 and 9) against
+the port's plain twins, on the CPU.
+
+The JAX kernels run in interpret mode with the specs of their callers:
+`examples/bench_vmem_gather.py` is loaded as a module (it does no work at
+import); `examples/proto_pallas_gather.py` runs its benchmark at import,
+so its two kernel functions are taken from its source with `ast` and run
+with a small TILE. Inputs come from numpy seeds. The gathers must be
+bit-equal (compared as uint32 words); the scatter is a sum of f32 terms,
+serial in index order in the TPU kernel, and must be within
+2 (n - 1) 2^-24 sum|terms| of the twin per entry.
+"""
+
+import ast
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from radnerf_tpu_torch import kernels
+from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
+from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+VMEM = pltpu.VMEM
+R, E = 64, 512              # kernel 8: table rows, gathered words
+T, M, TILE = 256, 1024, 128  # kernel 9: table rows, updates, grid tile
+NEW_KERNELS = ("tal_sublane", "rowgather_onehot", "pallas_gather",
+               "pallas_scatter")
+
+
+@pytest.fixture(scope="module")
+def vmem_mod():
+    spec = importlib.util.spec_from_file_location(
+        "jax_bench_vmem_gather", EXAMPLES / "bench_vmem_gather.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def proto_kernels():
+    """gather_kernel and scatter_kernel from proto_pallas_gather.py's
+    source, bound to TILE."""
+    tree = ast.parse((EXAMPLES / "proto_pallas_gather.py").read_text())
+    funcs = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+             and n.name in ("gather_kernel", "scatter_kernel")]
+    assert len(funcs) == 2
+    ns = {"jax": jax, "jnp": jnp, "pl": pl, "TILE": TILE}
+    exec(compile(ast.Module(body=funcs, type_ignores=[]),
+                 "proto_pallas_gather.py", "exec"), ns)
+    return ns["gather_kernel"], ns["scatter_kernel"]
+
+
+def _words(seed):
+    rng = np.random.default_rng(seed)
+    tbl = rng.integers(0, 2**32, (R, 128), dtype=np.uint32)
+    flat = rng.integers(0, R * 128, (E,), dtype=np.int64).astype(np.int32)
+    rows = rng.integers(0, R, (E // 128, 128), dtype=np.int64).astype(
+        np.int32)
+    return tbl, flat, rows
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tal_sublane_twin_equals_jax_kernel(vmem_mod, seed):
+    tbl, _, rows = _words(seed)
+    ref = pl.pallas_call(
+        vmem_mod._tal_kernel,
+        out_shape=jax.ShapeDtypeStruct(rows.shape, jnp.uint32),
+        in_specs=[pl.BlockSpec(memory_space=VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=VMEM), interpret=True,
+    )(jnp.asarray(tbl), jnp.asarray(rows))
+    ref = np.asarray(ref)
+    np.testing.assert_array_equal(
+        ref, np.take_along_axis(tbl, rows, axis=0))
+    got = tvg.tal_sublane(_t(tbl.view(np.int32)), _t(rows))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rowgather_onehot_twin_equals_jax_kernel(vmem_mod, seed):
+    tbl, flat, _ = _words(seed)
+    row = (flat >> 7).reshape(-1, 128)
+    lane = (flat & 127).reshape(-1, 128)
+    ref = pl.pallas_call(
+        vmem_mod._rowgather_kernel,
+        out_shape=jax.ShapeDtypeStruct(row.shape, jnp.uint32),
+        in_specs=[pl.BlockSpec(memory_space=VMEM)] * 3,
+        out_specs=pl.BlockSpec(memory_space=VMEM), interpret=True,
+    )(jnp.asarray(tbl), jnp.asarray(row), jnp.asarray(lane))
+    ref = np.asarray(ref)
+    np.testing.assert_array_equal(ref, tbl.reshape(-1)[flat].reshape(
+        row.shape))
+    got = tvg.rowgather_onehot(_t(tbl.view(np.int32)), _t(row), _t(lane))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+
+
+def _rows(seed):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((T, 2)).astype(np.float32)
+    idx = rng.integers(0, T, (M,)).astype(np.int32)
+    idx[:64] = 7                                  # one row hit 64+ times
+    vals = rng.standard_normal((M, 2)).astype(np.float32)
+    return table, idx, vals
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pallas_gather_twin_equals_jax_kernel(proto_kernels, seed):
+    table, idx, _ = _rows(seed)
+    ref = pl.pallas_call(
+        proto_kernels[0],
+        out_shape=jax.ShapeDtypeStruct((M, 2), jnp.float32),
+        grid=(M // TILE,),
+        in_specs=[pl.BlockSpec((T, 2), lambda i: (0, 0), memory_space=VMEM),
+                  pl.BlockSpec((TILE,), lambda i: (i,), memory_space=VMEM)],
+        out_specs=pl.BlockSpec((TILE, 2), lambda i: (i, 0),
+                               memory_space=VMEM),
+        interpret=True,
+    )(jnp.asarray(table), jnp.asarray(idx))
+    ref = np.asarray(ref)
+    np.testing.assert_array_equal(ref.view(np.uint32),
+                                  np.asarray(jnp.take(table, idx, axis=0))
+                                  .view(np.uint32))
+    got = tpg.pallas_gather(_t(table), _t(idx))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  ref.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pallas_scatter_twin_within_order_bound_of_jax_kernel(
+        proto_kernels, seed):
+    _, idx, vals = _rows(seed)
+    ref = pl.pallas_call(
+        proto_kernels[1],
+        out_shape=jax.ShapeDtypeStruct((T, 2), jnp.float32),
+        grid=(M // TILE,),
+        in_specs=[pl.BlockSpec((TILE,), lambda i: (i,), memory_space=VMEM),
+                  pl.BlockSpec((TILE, 2), lambda i: (i, 0),
+                               memory_space=VMEM)],
+        out_specs=pl.BlockSpec((T, 2), lambda i: (0, 0), memory_space=VMEM),
+        interpret=True,
+    )(jnp.asarray(idx), jnp.asarray(vals))
+    ref = np.asarray(ref)
+    xla = np.asarray(jnp.zeros((T, 2), jnp.float32).at[idx].add(vals))
+    got = tpg.pallas_scatter(_t(idx), _t(vals), T)
+    bound = tpg.scatter_order_bound(_t(idx), _t(vals), T).numpy()
+    assert bound.max() > 0
+    for other in (ref, xla):
+        assert (np.abs(got.numpy() - other) <= bound).all()
+
+
+def test_cpu_calls_launch_no_kernel():
+    tbl, flat, rows = _words(2)
+    table, idx, vals = _rows(2)
+    before = {k: kernels.launch_counts[k] for k in NEW_KERNELS}
+    tvg.tal_sublane(_t(tbl.view(np.int32)), _t(rows))
+    tvg.rowgather_onehot(_t(tbl.view(np.int32)),
+                         _t((flat >> 7).reshape(-1, 128)),
+                         _t((flat & 127).reshape(-1, 128)))
+    tpg.pallas_gather(_t(table), _t(idx))
+    tpg.pallas_scatter(_t(idx), _t(vals), T)
+    assert {k: kernels.launch_counts[k] for k in NEW_KERNELS} == before
+    assert all(k in kernels.KERNELS for k in NEW_KERNELS)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    tbl = torch.zeros((R, 128), dtype=torch.int32)
+    rows = torch.zeros((E // 128, 128), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tvg.tal_sublane(tbl.to(torch.int64), rows)
+    with pytest.raises(ValueError):
+        tvg.tal_sublane(tbl, rows.reshape(-1))        # E must tile by 128
+    with pytest.raises(ValueError):
+        tvg.rowgather_onehot(tbl, rows, rows[:1])
+    with pytest.raises(ValueError):
+        tvg.make_inputs(1000, R, "cpu")
+    table = torch.zeros((T, 2))
+    idx = torch.zeros(M, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tpg.pallas_gather(table.double(), idx)
+    with pytest.raises(ValueError):
+        tpg.pallas_gather(torch.zeros((T, 3)), idx)
+    with pytest.raises(ValueError):
+        tpg.pallas_scatter(idx.long(), torch.zeros((M, 2)), T)
+    with pytest.raises(ValueError):
+        tpg.pallas_scatter(idx, torch.zeros((M - 1, 2)), T)

@@ -34,4 +34,6 @@ def test_port_and_chip_smoke_import_no_jax():
     lines = res.stdout.splitlines()
     assert lines[-1] == "BAD []", res.stdout
     n_modules = int(lines[-2].split()[1])
-    assert n_modules >= 18          # the package, its sub-packages, modules
+    # the package, its sub-packages and modules, the examples included: a
+    # module that stops importing lowers the count
+    assert n_modules >= 46
