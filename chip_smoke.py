@@ -2,7 +2,7 @@
 """Drive the PyTorch port's Rad-NeRF MoE render and training, and its
 examples' microbenchmark kernels, on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare-csrc LABEL=DIR ...]
 
 Phases (any failure is an uncaught error and a nonzero exit; there is no
 CPU fallback):
@@ -32,9 +32,13 @@ CPU fallback):
      union march's 2048 x 1024 lattice candidates, its marched samples,
      the table gradient of a random output gradient; the tcnn, slab and
      brick scatter kernels on the streams their families' backwards build
-     from the same samples and gradient), the PyTorch forwards of the
-     other families timed on the same samples, and the encode on one
-     warmup grid update's 2,097,152 cells; then TRAIN_STEPS steps of
+     from the same samples and gradient), with each kernel's and library
+     call's device time alone (a CUDA graph of 20 calls), the PyTorch
+     forwards of the other families timed on the same samples, rows 3, 4
+     and 7 through the --compare-csrc builds on the same inputs, the
+     brick3 and tcnn table gradients on four streams made for their warp
+     aggregation, and the encode on one warmup grid update's 2,097,152
+     cells; then TRAIN_STEPS steps of
      Trainer.fit_steps (grid updates every 16 steps, every cell below
      step 256, the adaptive budget), launch counts reset just before and
      read just after; loss and PSNR at intervals, train rays/s (median
@@ -43,13 +47,15 @@ CPU fallback):
      encode alone timed (forward and backward) at a trained microbatch;
      then one 256-ray step on the card and on the CPU (plain versions)
      from the same parameters and draws, loss and every gradient leaf
-     compared;
+     compared (each leaf printed with its worst entry);
   6. the 'dedup' family (the tcnn hash, whose backward is the
      tcnn_table_grad kernel) trained the same way from the same seeds for
      DEDUP_STEPS steps: PSNR must rise, the launch counts are exact
      (tcnn_table_grad once per microbatch, no brick3 kernel); one step
-     profiled; the encode alone timed; a 256-ray card-vs-CPU step; and
-     one float32 step
+     profiled; the encode alone timed; 256-ray card-vs-CPU steps on seed 3
+     and PIN_SEEDS, each leaf held against the CPU step that takes the
+     card's forward once the two forwards are found equal up to their
+     bf16 roundings (TRAIN_CPU_GRAD_RTOL); and one float32 step
      (compute_dtype float32, hash_impl brick3, which routes to 'dedup')
      card against CPU;
   7. short runs of the 'slab', 'brick' and 'pallas' families
@@ -75,19 +81,26 @@ the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import ctypes
 import dataclasses
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+import radnerf_tpu_torch.models.gates as gates_mod
+import radnerf_tpu_torch.render.ml_render as ml_render_mod
 from radnerf_tpu_torch import kernels
 from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
 from radnerf_tpu_torch.examples import profile_step
 from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
 from radnerf_tpu_torch.models.gates import init_ray_gate
+from radnerf_tpu_torch.models.mlp import _Logistic
 from radnerf_tpu_torch.models.mngp import MNGPConfig, init_mngp, init_mngp_state
 from radnerf_tpu_torch.models.ngp import (
     all_cell_coords, cell_world_positions, scene_center_half,
@@ -122,7 +135,7 @@ from radnerf_tpu_torch.ops.stream_table_grad import (
     stream_table_grad, stream_table_grad_plain, stream_terms,
 )
 from radnerf_tpu_torch.parallel.step import (
-    microbatched_value_and_grad, tree_leaves, tree_unflatten,
+    microbatched_value_and_grad, tree_leaves, tree_paths, tree_unflatten,
 )
 from radnerf_tpu_torch.render.ml_render import get_rays, render_rays_chunked
 from radnerf_tpu_torch.render.render import NEAR_DISTANCE, RenderConfig
@@ -143,12 +156,38 @@ RENDER_REPEATS = 3              # timed full renders (median reported)
 CPU_TOL = {"rgb": 1e-2, "opacity": 5e-3, "depth": 5e-3}
 TRAIN_STEPS = 320               # 256 warmup steps, then 4 later updates
 STORE_IMAGES, STORE_SIDE = 32, 64   # the ray store: 32 cameras x 64x64
-# card vs CPU, one 256-ray training step: the march and the encode are
-# exact on both (phase 3), the table gradient is the same f32 sum in
-# another (atomic) order; the bf16 MLPs (cuBLAS vs the CPU) may round an
-# output one bf16 ulp apart (2^-8 relative), which the backward carries
-# into every leaf: the loss within 1%, each gradient leaf within 2% of its
-# largest entry
+# card vs CPU, one 256-ray training step: the rays, the march and the
+# encode are exact on both (phase 3; render/ml_render.py::get_rays), the
+# table gradient is the same f32 sum in another (atomic) order; the bf16
+# MLPs (cuBLAS vs the CPU) may round an output one bf16 ulp apart (2^-8
+# relative), which the backward carries into every leaf: the loss within
+# 1%, each gradient leaf within 2% of its largest entry.
+# The dedup check (pin_forward): a bf16 layer output h = bf16(bf16(mm) + b)
+# of the two sides, from the same inputs, is two roundings of sums of the
+# same K products in two orders, each within K 2^-23 sum|terms| of the
+# exact sum (a truncating tensor-core adder included): |h_card - h_cpu|
+# <= ulp(mm) + ulp(h) + 2 K 2^-23 (|x| @ |w|). The MLPs' inputs are the
+# rays, the encode (both exact) and the SH encode of the unit ray
+# directions, whose norm sums three squares in two orders (the CPU's
+# vector_norm fuses them): each unit component within 6 f32 ulps, and a
+# basis polynomial (degree <= 3, coefficients <= 2.9) within ~81 2^-24,
+# under 2^-16, before its cast to bf16: |x_card - x_cpu| <= ulp(x) +
+# 2^-16. One such step in a density
+# logit moves sigma = exp(h) by up to 6% (ulp(h) = 2^-4 on [8, 16)), and
+# the compositor carries that to the ray's later samples and every leaf,
+# beyond any bound on the leaves; so, once every layer output is found
+# within that bound (and the encode features equal), the card's step is
+# held against the CPU step that takes the card's forward values. What
+# is left is the backward's: each bf16 gradient one rounding apart, one
+# bf16 ulp of a leaf entry being at most 2^-7 of the leaf's largest, so
+# 2% holds 2.5 of them. Except where the leaf cancels: the ray gate. Its
+# softmax makes each logit's gradient a difference, p_k (g_k - p.g),
+# which training drives towards zero as the experts agree; every term of
+# every gate leaf carries it through the gate's backward, one bf16
+# rounding apart on the two sides at each layer (the logits' gradient
+# cast to bf16 first), i.e. a few 2^-8 of the term, not of the sum; so the
+# gate's leaves are held at 2% of their largest sum of term magnitudes,
+# |x|^T |dL/dh| (bias: sum |dL/dh|), not of their own largest entry.
 TRAIN_CPU_LOSS_RTOL = 1e-2
 TRAIN_CPU_GRAD_RTOL = 2e-2
 # the same in float32: the MLPs' f32 sums in other orders (cuBLAS vs the
@@ -157,14 +196,16 @@ TRAIN_CPU_GRAD_RTOL = 2e-2
 TRAIN_CPU_F32_LOSS_RTOL = 1e-4
 TRAIN_CPU_F32_GRAD_RTOL = 5e-3
 DEDUP_STEPS = 320               # the dedup family: as long as phase 5
+# samples of each aggregation stream: a step-0 microbatch's slots
+AGG_SAMPLES = 2048 * 64
+# the dedup card-vs-CPU check: further 256-ray batches of the trained
+# state, held beside seed 3 (TRAIN_CPU_GRAD_RTOL)
+PIN_SEEDS = tuple(range(10, 58))
 FAMILY_STEPS = 48               # slab, brick, pallas: 3 warmup updates
 # hash family -> its table-gradient kernel
 FAMILY_KERNELS = {"brick3": "brick3_table_grad",
                   "dedup": "tcnn_table_grad", "slab": "slab_table_grad",
                   "brick": "brick_table_grad", "pallas": "tcnn_table_grad"}
-# kernel 3 vs its plain version: the same f32 products summed by atomics
-# in an order that changes from run to run: within 2 (n - 1) u sum|terms|
-# per table entry (n terms, u = 2^-24)
 
 
 def check(ok: bool, what: str) -> None:
@@ -196,12 +237,17 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 spacing at |x|, elementwise, in float32."""
+    x = x.float().abs()
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+
+
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest |a - b| in units of the bf16 ulp of max(|a|, |b|)."""
     a, b = a.float(), b.float()
     mag = torch.maximum(a.abs(), b.abs())
-    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
-    ulp = torch.where(mag > 0, ulp, 1.0)
+    ulp = torch.where(mag > 0, bf16_ulp(mag), 1.0)
     return float(((a - b).abs() / ulp).max())
 
 
@@ -372,9 +418,12 @@ def encode_check(table, packed, xn, hcfg, at: str, n_valid: int,
                  f"T=2^{hcfg.log2_table_size}",
         "ms": median_ms(lambda: hashgrid_encode_brick3_fwd_impl(
             table, xn, hcfg, packed=packed)),
+        "device_ms": graph_ms(lambda: hashgrid_encode_brick3_fwd_impl(
+            table, xn, hcfg, packed=packed)),
         "plain_ms": median_ms(lambda: _encode_plain(packed, xn, hcfg),
                               reps=plain_reps, warmup=min(5, plain_reps)),
-        "library_ms": None,
+        "library_ms": None, "library_device_ms": None,
+        "library_call": "none: no PyTorch call computes a hash-grid encode",
     }
     # x in, 2 bf16 out per (sample, level), the distinct table words read;
     # ~60 f32 operations per (sample, level) (3 fma-floor-sub, 8 weights,
@@ -402,11 +451,16 @@ def occ_check(xyz, dt, occ_union, mcfg, at: str) -> dict:
                  f"grid, {int(occ_k.sum())} occupied",
         "ms": median_ms(lambda: occupancy_lookup_bricks(xyz, dt, occ_union,
                                                         mcfg)),
+        "device_ms": graph_ms(lambda: occupancy_lookup_bricks(
+            xyz, dt, occ_union, mcfg)),
         "plain_ms": median_ms(lambda: occupancy_lookup(xyz, dt, occ_union,
                                                        mcfg)),
-        # the advanced-indexing gather of occupancy_lookup, given the
-        # flat cell indices
+        # the advanced-indexing gather of occupancy_lookup, given the flat
+        # cell indices: not a yardstick for the same function (no PyTorch
+        # call computes the lookup from positions)
         "library_ms": median_ms(lambda: occ_flat[flat]),
+        "library_device_ms": graph_ms(lambda: occ_flat[flat]),
+        "library_call": "a gather of precomputed cell indices (less work)",
     }
     # xyz, dt in and a bool out per candidate, one byte per distinct cell;
     # ~24 f32 operations per candidate (abs/max, frexp, 3 x div-add-mul-
@@ -416,13 +470,13 @@ def occ_check(xyz, dt, occ_union, mcfg, at: str) -> dict:
     return rec
 
 
-def table_grad_check(xn, g, hcfg, at: str, n_valid: int) -> dict:
-    """Kernel 3 against its plain version (within its summation-order
-    bound), with the times of both, of one index_add_ call and of the
-    output's zero-fill alone, and the bound."""
+def brick3_grad_err(xn, g, hcfg, got) -> tuple:
+    """|got - the plain twin| of kernel 3 on (xn, g) and its summation-order
+    bound: the same f32 products summed by atomics in an order that
+    changes from run to run, within 2 (n - 1) u sum|terms| per table entry
+    (n terms, u = 2^-24). Returns (err, tol), each (L * T, 2)."""
     dev = xn.device
     L, T = hcfg.n_levels, hcfg.table_size
-    got = hashgrid_table_grad_brick3(xn, g, hcfg)
     ref = _table_grad_plain(xn, g, hcfg)
     idx, w = _corner_terms(xn, hcfg)
     vals = (w[..., None] * g.reshape(-1, L, 2).permute(1, 0, 2)[:, None])
@@ -432,24 +486,65 @@ def table_grad_check(xn, g, hcfg, at: str, n_valid: int) -> dict:
     count = torch.zeros(L * T, device=dev).index_add_(
         0, flat_idx, (flat_vals[:, 0] != 0).float())
     tol = 2 * (count[:, None] - 1).clamp_min(1) * 2.0**-24 * abs_sum
-    err = (got - ref).abs().reshape(-1, 2)
+    return (got - ref).abs().reshape(-1, 2), tol
+
+
+def stream_grad_err(name, keys, vals, T: int, got) -> tuple:
+    """|got - the plain twin| of a stream kernel and its summation-order
+    bound, 2 (n - 1) u sum|terms| per table entry. Returns (err, tol, the
+    stream's terms)."""
+    dev = keys.device
+    L = keys.shape[0]
+    ref = stream_table_grad_plain(name, keys, vals, T)
+    flat, terms = stream_terms(name, keys, vals, T)
+    abs_sum = torch.zeros((L * T, 2), device=dev).index_add_(
+        0, flat, terms.abs())
+    count = torch.zeros((L * T, 2), device=dev).index_add_(
+        0, flat, (terms != 0).float())
+    tol = 2 * (count - 1).clamp_min(1) * 2.0**-24 * abs_sum
+    return (got - ref).abs().reshape(-1, 2), tol, terms
+
+
+ORDER_CHECK = ("within 2 (n - 1) 2^-24 sum|terms| per entry (atomic "
+               "summation order)")
+
+
+def table_grad_check(xn, g, hcfg, at: str, n_valid: int) -> dict:
+    """Kernel 3 against its plain version (within its summation-order
+    bound), with the times of both, of one index_add_ call and of the
+    output's zero-fill alone, the wrapper's and the index_add_'s device
+    time alone, and the bound."""
+    dev = xn.device
+    L, T = hcfg.n_levels, hcfg.table_size
+    err, tol = brick3_grad_err(xn, g, hcfg,
+                               hashgrid_table_grad_brick3(xn, g, hcfg))
     torch.cuda.synchronize()
     check(bool((err <= tol).all()), f"brick3_table_grad kernel vs plain at "
                                     f"{at}: max|diff| {float(err.max())}")
+    idx, w = _corner_terms(xn, hcfg)
+    vals = (w[..., None] * g.reshape(-1, L, 2).permute(1, 0, 2)[:, None])
+    flat_idx, flat_vals = idx.reshape(-1), vals.reshape(-1, 2)
+
+    def library():
+        return torch.zeros((L * T, 2), device=dev).index_add_(
+            0, flat_idx, flat_vals)
+
     rec = {
-        "at": at,
-        "check": "within 2 (n - 1) 2^-24 sum|terms| per entry "
-                 "(atomic summation order)",
+        "at": at, "check": ORDER_CHECK,
         "max_abs_err": float(err.max()),
         "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
         "shape": f"{xn.shape[0]} samples ({n_valid} valid), L={L}, "
                  f"T=2^{hcfg.log2_table_size}, out {L * T * 8 >> 20} MiB",
         "ms": median_ms(lambda: hashgrid_table_grad_brick3(xn, g, hcfg)),
+        "device_ms": graph_ms(lambda: hashgrid_table_grad_brick3(xn, g,
+                                                                 hcfg)),
         "plain_ms": median_ms(lambda: _table_grad_plain(xn, g, hcfg)),
         # one PyTorch call for the same scatter-add, given the flat corner
         # indices and products (the zero-fill included, as in the kernel)
-        "library_ms": median_ms(lambda: torch.zeros(
-            (L * T, 2), device=dev).index_add_(0, flat_idx, flat_vals)),
+        "library_ms": median_ms(library),
+        "library_device_ms": graph_ms(library),
+        "library_call": "index_add_ of precomputed corner indices and "
+                        "products, zero-fill included (less work)",
         # the wrapper's torch.zeros of the output, alone
         "zero_fill_ms": median_ms(lambda: torch.zeros((L, T, 2),
                                                       device=dev)),
@@ -468,38 +563,38 @@ def stream_check(name: str, contract: str, keys, vals, T: int, at: str,
     twin on the stream its family's backward builds (within the atomic
     summation-order bound), with the times of the kernel's wrapper, the
     twin, one index_add_ of the same terms and the whole contract
-    function (the stream built from positions and gradient included),
-    and the bound."""
+    function (the stream built from positions and gradient included), the
+    wrapper's and the index_add_'s device time alone, and the bound."""
     dev = keys.device
     L, n = keys.shape
-    got = stream_table_grad(name, keys, vals, T)
-    ref = stream_table_grad_plain(name, keys, vals, T)
-    flat, terms = stream_terms(name, keys, vals, T)
-    abs_sum = torch.zeros((L * T, 2), device=dev).index_add_(
-        0, flat, terms.abs())
-    count = torch.zeros((L * T, 2), device=dev).index_add_(
-        0, flat, (terms != 0).float())
-    tol = 2 * (count - 1).clamp_min(1) * 2.0**-24 * abs_sum
-    err = (got - ref).abs().reshape(-1, 2)
+    err, tol, terms = stream_grad_err(name, keys, vals, T,
+                                      stream_table_grad(name, keys, vals, T))
     torch.cuda.synchronize()
     check(bool((err <= tol).all()), f"{name} kernel vs plain ({contract}) "
                                     f"at {at}: max|diff| {float(err.max())}")
+    flat, _ = stream_terms(name, keys, vals, T)
     n_terms = int((terms != 0).sum())
+
+    def library():
+        return torch.zeros((L * T, 2), device=dev).index_add_(0, flat, terms)
+
     rec = {
-        "at": at, "contract": contract,
-        "check": "within 2 (n - 1) 2^-24 sum|terms| per entry "
-                 "(atomic summation order)",
+        "at": at, "contract": contract, "check": ORDER_CHECK,
         "max_abs_err": float(err.max()),
         "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
         "shape": f"{L} x {n} stream entries, {n_terms} nonzero f32 terms, "
                  f"T=2^{T.bit_length() - 1}, out {L * T * 8 >> 20} MiB",
         "ms": median_ms(lambda: stream_table_grad(name, keys, vals, T)),
+        "device_ms": graph_ms(lambda: stream_table_grad(name, keys, vals,
+                                                        T)),
         "plain_ms": median_ms(lambda: stream_table_grad_plain(
             name, keys, vals, T), reps=10),
         # one PyTorch call for the same scatter-add, given the flat
         # entries and terms (the zero-fill included, as in the kernel)
-        "library_ms": median_ms(lambda: torch.zeros(
-            (L * T, 2), device=dev).index_add_(0, flat, terms)),
+        "library_ms": median_ms(library),
+        "library_device_ms": graph_ms(library),
+        "library_call": "index_add_ of the precomputed flat entries and "
+                        "terms, zero-fill included (less work)",
         "contract_ms": median_ms(contract_fn, reps=10),
     }
     # keys and value planes read once, the 64 MiB gradient written once;
@@ -539,6 +634,169 @@ def stream_checks(xn, g, hcfg, at: str) -> dict:
     return recs
 
 
+def aggregation_inputs(n: int, L: int, dev) -> dict:
+    """Positions in [0, 1]^3 and output gradients (N, 2L) made for the warp
+    aggregation of the table-gradient kernels (torch.Generator seed 9):
+    every sample in one cell (every warp one group); samples spread
+    uniformly (hardly any group); runs of 8 samples on one point with
+    every third sample's gradient zero (groups with zero-gradient
+    members); rays of 64 samples 2^-10 apart, cut to a length that is a
+    multiple neither of the kernels' 64-sample tile nor of 32."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    g = torch.randn((n, 2 * L), generator=gen, device=dev)
+    k = torch.arange(n, device=dev)
+    n_rays = -(-n // 64)
+    d = torch.randn((n_rays, 3), generator=gen, device=dev)
+    d = d / d.norm(dim=1, keepdim=True)
+    o = 0.25 + 0.5 * u(n_rays, 3)
+    ray = (o[k // 64] + d[k // 64] * ((k % 64)[:, None] * 2.0**-10)
+           ).clamp(0.0, 1.0)
+    m = n - 13
+    return {
+        "one cell": (u(1, 3).expand(n, 3).contiguous(), g),
+        "uniform": (u(n, 3), g),
+        "runs of 8, zero-gradient members": (
+            u(-(-n // 8), 3)[k // 8].contiguous(),
+            torch.where((k % 3 == 0)[:, None], 0.0, g).contiguous()),
+        f"rays, ragged length {m}": (ray[:m].contiguous(),
+                                     g[:m].contiguous()),
+    }
+
+
+def aggregation_checks(hcfg, n: int, dev) -> dict:
+    """brick3_table_grad and tcnn_table_grad (on the dedup path's
+    corner-major stream) against their plain twins, under the same
+    summation-order bound, on each stream of aggregation_inputs. Returns
+    {kernel row key: [check records]}."""
+    T = hcfg.table_size
+    recs = {"brick3_table_grad": [], "hashgrid_table_grad_window": []}
+    for case, (x, g) in aggregation_inputs(n, hcfg.n_levels, dev).items():
+        at = f"aggregation stream: {case}"
+        err, tol = brick3_grad_err(x, g, hcfg,
+                                   hashgrid_table_grad_brick3(x, g, hcfg))
+        keys, vals = tcnn_stream(*hashgrid_indices_cm(x, hcfg), g)
+        s_err, s_tol, _ = stream_grad_err(
+            "tcnn_table_grad", keys, vals, T,
+            stream_table_grad("tcnn_table_grad", keys, vals, T))
+        torch.cuda.synchronize()
+        for key, e, t in (("brick3_table_grad", err, tol),
+                          ("hashgrid_table_grad_window", s_err, s_tol)):
+            check(bool((e <= t).all()), f"{key} kernel vs plain at {at}: "
+                                        f"max|diff| {float(e.max())}")
+            recs[key].append({
+                "at": at, "check": ORDER_CHECK,
+                "shape": f"{x.shape[0]} samples",
+                "max_abs_err": float(e.max()),
+                "max_err_over_tol": float((e / t.clamp_min(1e-30)).max())})
+            print(f"[aggregation] {key} at {at} ({x.shape[0]} samples): "
+                  f"{ORDER_CHECK} ok, max|diff| {float(e.max()):.3g}, "
+                  f"{recs[key][-1]['max_err_over_tol']:.3g} of its bound")
+    return recs
+
+
+def build_alternates(specs: list) -> dict:
+    """--compare-csrc LABEL=DIR: brick3_table_grad and tcnn_table_grad built
+    from DIR/brick3_table_grad.cu and DIR/stream_table_grad.cu, where DIR
+    has them (another version of the same C entry points, e.g. the csrc/
+    of a parent commit unpacked outside the tracked tree), with this
+    tree's nvcc flags, into DIR/_build. Returns {label: {kernel: ctypes
+    entry point}}."""
+    nvcc = kernels.nvcc_path()
+    jobs = []
+    for spec in specs:
+        label, d = spec.split("=", 1)
+        d = Path(d).resolve()
+        (d / "_build").mkdir(exist_ok=True)
+        for src, names in (("brick3_table_grad.cu", ["brick3_table_grad"]),
+                           ("stream_table_grad.cu", ["tcnn_table_grad"])):
+            if not (d / src).exists():
+                continue
+            lib = d / "_build" / f"lib{Path(src).stem}.so"
+            cmd = [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                   str(lib), str(d / src)]
+            jobs.append((label, src, names, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    alts = {}
+    for label, src, names, lib, proc in jobs:
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"--compare-csrc {label}: nvcc {src} "
+                                    f"failed\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[compare] {label} {src}: {line.strip()}")
+        cdll = ctypes.CDLL(str(lib))
+        for name in names:
+            fn = getattr(cdll, name)
+            fn.argtypes = kernels.KERNELS[name][1]
+            fn.restype = ctypes.c_int
+            alts.setdefault(label, {})[name] = fn
+    return alts
+
+
+@contextlib.contextmanager
+def entry_points(fns: dict):
+    """Route kernels.launch of the named kernels to other entry points
+    (same C signatures) for the duration of the block."""
+    saved = {name: kernels._entry.get(name) for name in fns}
+    kernels._entry.update(fns)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            if fn is None:
+                kernels._entry.pop(name, None)
+            else:
+                kernels._entry[name] = fn
+
+
+def compare_alternates(alts: dict, xn, g, hcfg) -> dict:
+    """Rows 3, 4 and 7 (brick3_table_grad, tcnn_table_grad on the dedup
+    and the pallas stream) on this microbatch's inputs, through this
+    tree's kernels and each alternate build: every result held against
+    the plain twin under the summation-order bound, and the device time
+    of each (graph_ms), this tree's measured first and again last.
+    Returns {row: {label: device ms}}."""
+    T = hcfg.table_size
+    cm = tcnn_stream(*hashgrid_indices_cm(xn, hcfg), g)
+    pm = point_stream(*hashgrid_indices(xn, hcfg), g)
+    rows = {
+        "brick3_table_grad": (
+            "brick3_table_grad", lambda: hashgrid_table_grad_brick3(
+                xn, g, hcfg),
+            lambda got: brick3_grad_err(xn, g, hcfg, got)[:2]),
+        "tcnn_table_grad (dedup stream)": (
+            "tcnn_table_grad", lambda: stream_table_grad(
+                "tcnn_table_grad", *cm, T),
+            lambda got: stream_grad_err("tcnn_table_grad", *cm, T, got)[:2]),
+        "tcnn_table_grad (pallas stream)": (
+            "tcnn_table_grad", lambda: stream_table_grad(
+                "tcnn_table_grad", *pm, T),
+            lambda got: stream_grad_err("tcnn_table_grad", *pm, T, got)[:2]),
+    }
+    out = {}
+    for row, (name, fn, err_of) in rows.items():
+        times = {"this tree": graph_ms(fn)}
+        for label, fns in alts.items():
+            if name not in fns:
+                continue
+            with entry_points({name: fns[name]}):
+                err, tol = err_of(fn())
+                torch.cuda.synchronize()
+                check(bool((err <= tol).all()), f"--compare-csrc {label} "
+                      f"{row}: max|diff| {float(err.max())}")
+                times[label] = graph_ms(fn)
+        times["this tree, again"] = graph_ms(fn)
+        out[row] = times
+        print(f"[compare] {row} on the device (CUDA graph), same inputs: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    return out
+
+
 def forward_times(table, xn, hcfg) -> dict:
     """Median ms of each family's forward at one microbatch's samples:
     the PyTorch gathers of the tcnn hash (bf16 and f32), slab ('plain'
@@ -571,8 +829,9 @@ def print_check(name: str, rec: dict) -> None:
     if "zero_fill_ms" in rec:
         extra += f", zero-fill {rec['zero_fill_ms']:.4f} ms"
     if "device_ms" in rec:
+        lib = rec["library_device_ms"]
         extra += (f"; on the device (CUDA graph) {rec['device_ms']:.4f} ms, "
-                  f"library {rec['library_device_ms']:.4f} ms")
+                  f"library {'none' if lib is None else f'{lib:.4f} ms'}")
     if "contract_ms" in rec:
         extra += (f", contract {rec['contract']} in "
                   f"{rec['contract_ms']:.4f} ms")
@@ -746,13 +1005,15 @@ def microbatch(trainer) -> dict:
             "n_valid": int(m["total"])}
 
 
-def microbatch_checks(trainer, at: str, streams: bool = False) -> dict:
+def microbatch_checks(trainer, at: str, streams: bool = False,
+                      alternates: dict | None = None) -> dict:
     """Kernels 1-3 against their plain versions at one training
     microbatch's shapes (`microbatch`): kernel 2 on the lattice
     candidates, kernels 1 and 3 on the marched samples and gradient; with
     `streams`, also kernels 4-7 and the forwards' times on the same
-    samples and gradient. Returns {kernel name or contract: check
-    record} (and "forward_ms")."""
+    samples and gradient, and rows 3, 4 and 7 against the `alternates`
+    builds (compare_alternates). Returns {kernel name or contract: check
+    record} (and "forward_ms", "compare")."""
     b = microbatch(trainer)
     hcfg = trainer.cfg.hash
     xn, g, n_valid = b["xn"], b["g"], b["n_valid"]
@@ -770,6 +1031,7 @@ def microbatch_checks(trainer, at: str, streams: bool = False) -> dict:
         print_check(name, rec)
     if streams:
         recs["forward_ms"] = forward_times(table, xn, hcfg)
+        recs["compare"] = compare_alternates(alternates or {}, xn, g, hcfg)
     return recs
 
 
@@ -908,7 +1170,8 @@ def check_launches(launches: dict, cfg: MNGPConfig, n_steps: int,
     check(launches == want, f"{label} launches {launches}, expected {want}")
 
 
-def train_phase(cfg: MNGPConfig, store: dict, dev) -> tuple:
+def train_phase(cfg: MNGPConfig, store: dict, dev,
+                alternates: dict) -> tuple:
     """Phase 5, brick3 at full width. Returns ({kernel or contract: its
     check records at training shapes}, launch counts of the TRAIN_STEPS
     steps, summary)."""
@@ -916,9 +1179,12 @@ def train_phase(cfg: MNGPConfig, store: dict, dev) -> tuple:
     trainer.update_grid(warmup=True)        # the state a first step sees
     checks = microbatch_checks(
         trainer, f"train step 0 (budget {trainer.rcfg.budget_per_ray})",
-        streams=True)
+        streams=True, alternates=alternates)
     forwards = checks.pop("forward_ms")
+    compare = checks.pop("compare")
     checks = {name: [rec] for name, rec in checks.items()}
+    for key, recs in aggregation_checks(cfg.hash, AGG_SAMPLES, dev).items():
+        checks[key] += recs
     checks["brick3_encode_fwd"].append(grid_update_check(trainer))
     trainer.model_state = init_mngp_state(cfg, device=dev)
 
@@ -938,16 +1204,19 @@ def train_phase(cfg: MNGPConfig, store: dict, dev) -> tuple:
         f"one training step ({trainer.tcfg.batch_size} rays, {mb} "
         f"microbatches)")
     summary["forward_ms"] = forwards
+    summary["compare_device_ms"] = compare
     summary["encode_ms"] = encode_times(trainer, "train")
     train_vs_cpu(trainer)
     return checks, launches, summary
 
 
 def family_phase(cfg: MNGPConfig, store: dict, dev, n_steps: int,
-                 label: str, profile: bool = False) -> tuple:
+                 label: str, profile: bool = False,
+                 pin_forward: bool = False) -> tuple:
     """A fresh trainer of cfg's family trained n_steps steps: finite
     losses, exact launch counts, optionally a profiled step, and a 256-ray
-    card-vs-CPU step. Returns (trainer, launch counts, summary)."""
+    card-vs-CPU step (see train_vs_cpu for `pin_forward`).
+    Returns (trainer, launch counts, summary)."""
     t0 = time.perf_counter()
     trainer = new_trainer(cfg, store, dev)
     launches, summary = fit(trainer, n_steps, label)
@@ -960,62 +1229,259 @@ def family_phase(cfg: MNGPConfig, store: dict, dev, n_steps: int,
             f"one {label} training step ({trainer.tcfg.batch_size} rays, "
             f"{mb} microbatches)")
     summary["encode_ms"] = encode_times(trainer, label)
-    train_vs_cpu(trainer, label=label)
+    summary["vs_cpu"] = train_vs_cpu(trainer, label=label,
+                                     pin_forward=pin_forward)
     summary["phase_seconds"] = time.perf_counter() - t0
     return trainer, launches, summary
+
+
+def leaf_report(paths, card, cpu, scale: dict | None = None) -> list:
+    """Per gradient leaf: max|card - cpu| / max|cpu| (or / scale[path]
+    where given), the index of its worst entry and the two values
+    there."""
+    rows = []
+    for path, a, c in zip(paths, card, cpu):
+        d = (a - c).abs().reshape(-1)
+        k = int(d.argmax())
+        ref = (scale or {}).get(path, float(c.abs().max()))
+        rows.append({
+            "leaf": path,
+            "ratio": float(d[k]) / max(ref, 1e-30),
+            "at": [int(i) for i in np.unravel_index(k, tuple(a.shape))],
+            "card": float(a.reshape(-1)[k]), "cpu": float(c.reshape(-1)[k])})
+    return rows
+
+
+class StepProbe:
+    """What one training step's render computes on its way: the encode's
+    features, and every MLP's input and every layer's product and output
+    before its activation (the ray gate's, the geo and the rgb MLPs'),
+    recorded by wrappers of the names render/ml_render.py and
+    models/gates.py call. With `pin` (a probe recorded on another device,
+    the same step) the step takes that probe's forward: each encode
+    feature, MLP input and layer output is replaced by the pinned value
+    (the gradient path stays this device's: ref + (h - h)), after
+    measuring how far this device's own value, computed from the same
+    (pinned) inputs, lies from it: `feat_equal`; per MLP input max
+    |x - ref| / (ulp(x) + 2^-16) and per layer max |h - ref| / (ulp(mm) +
+    ulp(h) + 2 K 2^-23 (|x| @ |w|)), both in `gap` (see
+    TRAIN_CPU_GRAD_RTOL); and `gate`, per layer of the ray gate, its
+    input and (once backward has run) its output's gradient."""
+
+    def __init__(self, pin: "StepProbe | None" = None):
+        self.feat, self.inputs, self.layers = [], [], []
+        self.pin = pin
+        self.feat_equal, self.gap = True, []
+        self.gate = []
+
+    @staticmethod
+    def _take(h, ref):
+        return ref.to(h.device) + (h - h.detach())
+
+    def _encode(self, params, state, cfg, xyz, packed=None):
+        out = self._orig["_encode"](params, state, cfg, xyz, packed=packed)
+        if self.pin is not None:
+            ref = self.pin.feat[len(self.feat)].to(out.device)
+            self.feat_equal &= bool(torch.equal(out.detach(), ref))
+            out = self._take(out, ref)
+        self.feat.append(out.detach())
+        return out
+
+    def _mlp(self, params, x, out_act=None, compute_dtype=torch.float32):
+        # models/mlp.py::apply_mlp with each ReLU written as
+        # where(pre > 0, pre, 0) (the same values and gradient)
+        h = x.to(compute_dtype)
+        if self.pin is not None:
+            ref = self.pin.inputs[len(self.inputs)].to(h.device)
+            self.gap.append(float(((h.float() - ref.float()).abs() / (
+                bf16_ulp(torch.maximum(h.detach().abs(), ref.abs()))
+                + 2.0**-16)).max()))
+            h = self._take(h, ref)
+        self.inputs.append(h.detach())
+        n = len(params["w"])
+        for i in range(n):
+            w = params["w"][i].to(compute_dtype)
+            b = params["b"][i].to(compute_dtype)
+            mm = torch.matmul(h, w)
+            out = mm + b.unsqueeze(-2)
+            if self.pin is not None:
+                ref, ref_mm, _ = self.pin.layers[len(self.layers)]
+                ref, ref_mm = ref.to(out.device), ref_mm.to(out.device)
+                acc = 2 * w.shape[-2] * 2.0**-23 * torch.matmul(
+                    h.detach().float().abs(), w.detach().float().abs())
+                tol = (bf16_ulp(torch.maximum(mm.detach().abs(),
+                                              ref_mm.abs()))
+                       + bf16_ulp(torch.maximum(out.detach().abs(),
+                                                ref.abs())) + acc)
+                self.gap.append(float(((out.detach().float() - ref.float())
+                                       .abs() / tol).max()))
+                out = self._take(out, ref)
+            if len(self.inputs) == 1:          # the gate's call is first
+                rec = {"x": h.detach()}
+                self.gate.append(rec)
+                if out.requires_grad:
+                    out.register_hook(
+                        lambda g, rec=rec: rec.update(grad=g.detach()))
+            self.layers.append((out.detach(), mm.detach(), i < n - 1))
+            h = out
+            if i < n - 1:
+                h = torch.where(h > 0, h, torch.zeros_like(h))
+        if out_act == "sigmoid":
+            h = _Logistic.apply(h)
+        elif out_act == "exp":
+            h = torch.exp(h)
+        return h
+
+    @contextlib.contextmanager
+    def patched(self):
+        names = {"_encode": self._encode, "apply_mlp": self._mlp}
+        saved = self._orig = {k: getattr(ml_render_mod, k) for k in names}
+        gate_mlp = gates_mod.apply_mlp
+        for k, fn in names.items():
+            setattr(ml_render_mod, k, fn)
+        gates_mod.apply_mlp = self._mlp
+        try:
+            yield self
+        finally:
+            for k, fn in saved.items():
+                setattr(ml_render_mod, k, fn)
+            gates_mod.apply_mlp = gate_mlp
+
+
+def probe_diffs(card: StepProbe, cpu: StepProbe) -> dict:
+    """Where the card's forward left the CPU's (each side's own step):
+    differing encode features; per MLP layer, differing outputs and
+    (hidden layers) flipped ReLU decisions."""
+    return {
+        "feat_diff": sum(int((x.cpu() != y).sum())
+                         for x, y in zip(card.feat, cpu.feat)),
+        "layer_diff": [int((x.cpu() != y).sum())
+                       for (x, _, _), (y, _, _) in zip(card.layers,
+                                                       cpu.layers)],
+        "relu_flips": [int(((x.cpu() > 0) != (y > 0)).sum())
+                       for (x, _, hid), (y, _, _) in zip(card.layers,
+                                                         cpu.layers)
+                       if hid]}
+
+
+def cpu_step(trainer, cfg, batch, where, probe: StepProbe | None = None):
+    """One CPU_RAYS-ray step of the trainer's parameters and state on
+    `where` under cfg: (loss, aux, gradient leaves on the CPU)."""
+    move = lambda t: t.detach().to(where)
+    bundle = tree_unflatten(trainer.bundle,
+                            [move(p) for p in tree_leaves(trainer.bundle)])
+    for p in tree_leaves(bundle):
+        p.requires_grad_(True)
+    state = {k: move(v) for k, v in trainer.model_state.items()}
+    data = {k: move(v) for k, v in trainer.data.items()}
+    b = {k: move(v) for k, v in batch.items()}
+    vg = microbatched_value_and_grad(lambda p, bt: tt.loss_fn(
+        p, state, bt, data, cfg, trainer.rcfg, trainer.tcfg), 1)
+    with (probe.patched() if probe is not None
+          else contextlib.nullcontext()):
+        (loss, aux), grads = vg(bundle, b)
+    return (float(loss), {k: float(v) for k, v in aux.items()},
+            [g.cpu() for g in tree_leaves(grads)])
 
 
 def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
                  loss_rtol: float = TRAIN_CPU_LOSS_RTOL,
                  grad_rtol: float = TRAIN_CPU_GRAD_RTOL,
-                 label: str = "train") -> None:
+                 label: str = "train", pin_forward: bool = False) -> dict:
     """One 256-ray step at full width on the card and on the CPU (plain
-    versions) from the trainer's parameters and state and the same draws,
-    under `cfg` (default the trainer's): loss, sample counts and every
-    gradient leaf; the card's step launches the family's table-gradient
-    kernel once."""
+    versions) from the trainer's parameters and state and the same draws
+    (seed 3), under `cfg` (default the trainer's): sample counts, loss and
+    every gradient leaf, each leaf reported by its path with its worst
+    entry; the card's step launches the family's table-gradient kernel
+    once. With `pin_forward` (see TRAIN_CPU_GRAD_RTOL) the leaves are held
+    against the CPU step that takes the card's forward (StepProbe), once
+    the encode features are found equal and every MLP layer output within
+    its two bf16 roundings of the CPU's; the same on each batch of
+    PIN_SEEDS, further 256-ray batches of the same state. Returns the
+    report of every batch."""
     cfg = cfg or trainer.cfg
     dev = trainer.data["directions"].device
-    gen = torch.Generator(device=dev).manual_seed(3)
-    batch = tt.sample_batch(gen, trainer.data, CPU_RAYS)
-    results = []
-    for where in (dev, torch.device("cpu")):
-        move = lambda t: t.detach().to(where)
-        bundle = tree_unflatten(trainer.bundle,
-                                [move(p) for p in tree_leaves(trainer.bundle)])
-        for p in tree_leaves(bundle):
-            p.requires_grad_(True)
-        state = {k: move(v) for k, v in trainer.model_state.items()}
-        data = {k: move(v) for k, v in trainer.data.items()}
-        b = {k: move(v) for k, v in batch.items()}
-        vg = microbatched_value_and_grad(lambda p, bt: tt.loss_fn(
-            p, state, bt, data, cfg, trainer.rcfg, trainer.tcfg), 1)
-        before = dict(kernels.launch_counts)
-        (loss, aux), grads = vg(bundle, b)
-        results.append((float(loss), {k: float(v) for k, v in aux.items()},
-                        [g.cpu() for g in tree_leaves(grads)]))
-        if where == dev:
-            family = (cfg.hash_impl if cfg.cdtype == torch.bfloat16
-                      else "dedup")
-            kernel = FAMILY_KERNELS[family]
-            check(kernels.launch_counts[kernel] == before[kernel] + 1,
-                  f"{label}: the card step did not launch {kernel} once")
-    (lg, ag, gg), (lc, ac, gc) = results
-    worst = max(float((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
-                for a, c in zip(gg, gc))
-    print(f"[{label}] card vs CPU plain, one {CPU_RAYS}-ray step "
-          f"({cfg.hash_impl}, {cfg.compute_dtype}): loss {lg:.6f} vs "
-          f"{lc:.6f}, samples {ag['rm_samples']:.0f} vs "
-          f"{ac['rm_samples']:.0f}, worst gradient leaf max|diff| / max|ref| "
-          f"{worst:.3g} over {len(gg)} leaves (tolerance loss {loss_rtol} "
-          f"relative, leaves {grad_rtol})")
-    check(ag["rm_samples"] == ac["rm_samples"],
-          f"{label}: card and CPU marched different samples")
-    check(abs(lg - lc) <= loss_rtol * abs(lc), f"{label}: card vs CPU loss")
-    check(worst <= grad_rtol, f"{label}: card vs CPU gradient leaves")
+    cpu_dev = torch.device("cpu")
+    paths = tree_paths(trainer.bundle)
+    family = cfg.hash_impl if cfg.cdtype == torch.bfloat16 else "dedup"
+    kernel = FAMILY_KERNELS[family]
+    report = []
+    for seed in (3, *PIN_SEEDS) if pin_forward else (3,):
+        batch = tt.sample_batch(
+            torch.Generator(device=dev).manual_seed(seed), trainer.data,
+            CPU_RAYS)
+        pg, pc = (StepProbe(), StepProbe()) if pin_forward else (None, None)
+        before = kernels.launch_counts[kernel]
+        lg, ag, gg = cpu_step(trainer, cfg, batch, dev, pg)
+        check(kernels.launch_counts[kernel] == before + 1,
+              f"{label}: the card step did not launch {kernel} once")
+        lc, ac, gc = cpu_step(trainer, cfg, batch, cpu_dev, pc)
+        leaves = leaf_report(paths, gg, gc)
+        top = max(leaves, key=lambda r: r["ratio"])
+        rec = {"seed": seed, "loss": [lg, lc],
+               "samples": [ag["rm_samples"], ac["rm_samples"]],
+               "worst": top["ratio"], "worst_leaf": top["leaf"]}
+        checked = leaves
+        if pin_forward and ag["rm_samples"] == ac["rm_samples"]:
+            pin = StepProbe(pin=pg)
+            _, _, gp = cpu_step(trainer, cfg, batch, cpu_dev, pin)
+            scale = {}
+            for i, layer in enumerate(pin.gate):
+                t = layer["grad"].float().abs()
+                scale[f"gate/encoder/w/{i}"] = float(
+                    (layer["x"].float().abs().T @ t).max())
+                scale[f"gate/encoder/b/{i}"] = float(t.sum(0).max())
+            checked = leaf_report(paths, gg, gp, scale)
+            top = max(checked, key=lambda r: r["ratio"])
+            own = {r["leaf"]: r["ratio"] for r in leaf_report(paths, gg, gp)}
+            rec.update(probe_diffs(pg, pc), feat_equal=pin.feat_equal,
+                       rounding_gap=max(pin.gap),
+                       rounding_gap_at=int(np.argmax(pin.gap)),
+                       worst_pinned=top["ratio"],
+                       worst_pinned_leaf=top["leaf"],
+                       gate={k: [own[k], scale[k] / max(
+                           float(gp[paths.index(k)].abs().max()), 1e-30)]
+                           for k in scale})
+        worst = max(r["ratio"] for r in checked)
+        report.append(rec)
+        if seed == 3:
+            print(f"[{label}] card vs CPU plain, one {CPU_RAYS}-ray step "
+                  f"({cfg.hash_impl}, {cfg.compute_dtype}): loss {lg:.6f} "
+                  f"vs {lc:.6f}, samples {ag['rm_samples']:.0f} vs "
+                  f"{ac['rm_samples']:.0f}, worst gradient leaf max|diff| / "
+                  f"max|ref| {rec['worst']:.3g} over {len(gg)} leaves"
+                  + (f", {worst:.3g} with the card's forward"
+                     if pin_forward else "")
+                  + f" (tolerance loss {loss_rtol} relative, leaves "
+                  f"{grad_rtol})")
+            for r in leaves:
+                print(f"[{label}]   leaf {r['leaf']}: {r['ratio']:.3g} at "
+                      f"{tuple(r['at'])}, card {r['card']:.6g} vs CPU "
+                      f"{r['cpu']:.6g}")
+        if pin_forward:
+            print(f"[{label}] batch seed {seed}: " + json.dumps(rec))
+        check(ag["rm_samples"] == ac["rm_samples"],
+              f"{label}: card and CPU marched different samples")
+        check(abs(lg - lc) <= loss_rtol * abs(lc),
+              f"{label}: card vs CPU loss")
+        if pin_forward:
+            check(rec["feat_equal"], f"{label}: card and CPU encodes differ")
+            check(rec["rounding_gap"] <= 1.0, f"{label}: an MLP output "
+                  f"beyond its two bf16 roundings ({rec['rounding_gap']})")
+        check(worst <= grad_rtol, f"{label}: card vs CPU gradient leaves "
+                                  f"(batch seed {seed})")
+    return report
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument(
+        "--compare-csrc", nargs="*", default=[], metavar="LABEL=DIR",
+        help="also time rows 3, 4 and 7 on the step-0 microbatch through "
+             "brick3_table_grad and tcnn_table_grad built from DIR (the "
+             "same C entry points, e.g. a parent commit's csrc/ unpacked "
+             "in a git-ignored directory)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is false); nothing was run")
@@ -1044,6 +1510,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
+    alternates = build_alternates(args.compare_csrc)
 
     cfg = MNGPConfig(scale=0.5, log2_T=19, grid_size=128, n_experts=2,
                      compute_dtype="bfloat16", hash_impl="brick3")
@@ -1173,14 +1640,15 @@ def main() -> None:
 
     # 5. the training slice at full width
     store = ray_store(cfg, dev)
-    train_checks, train_launches, summary = train_phase(cfg, store, dev)
+    train_checks, train_launches, summary = train_phase(cfg, store, dev,
+                                                        alternates)
     print(json.dumps({"train": summary}))
     phase_launches = {"render": launches, "train_brick3": train_launches}
 
     # 6. the dedup family, and one float32 step
     trainer_d, phase_launches["train_dedup"], summary_d = family_phase(
         dataclasses.replace(cfg, hash_impl="dedup"), store, dev,
-        DEDUP_STEPS, "dedup", profile=True)
+        DEDUP_STEPS, "dedup", profile=True, pin_forward=True)
     check(summary_d["psnr_last"] > summary_d["psnr_first"] + 3.0,
           f"dedup psnr did not rise: {summary_d}")
     train_vs_cpu(trainer_d, dataclasses.replace(

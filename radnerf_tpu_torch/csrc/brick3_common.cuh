@@ -37,16 +37,15 @@ struct Brick3Cell {
   float f[3];       // trilinear fractions (x, y, z)
 };
 
-// The cell of sample s (x: (N, 3) f32) at level l.
-__device__ __forceinline__ Brick3Cell brick3_cell(
-    const float* __restrict__ x, int64_t s, int l, uint32_t rows,
-    const Brick3Levels& lv) {
+// The cell of position (x[0], x[1], x[2]) at level l.
+__device__ __forceinline__ Brick3Cell brick3_cell_at(
+    const float (&x)[3], int l, uint32_t rows, const Brick3Levels& lv) {
   const float scale = lv.scale[l];
   Brick3Cell cell;
   int c[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const float pos = __fmaf_rn(__ldg(x + 3 * s + d), scale, 0.5f);
+    const float pos = __fmaf_rn(x[d], scale, 0.5f);
     const float fl = floorf(pos);
     cell.f[d] = __fsub_rn(pos, fl);
     c[d] = (int)fl;
@@ -59,6 +58,15 @@ __device__ __forceinline__ Brick3Cell brick3_cell(
                                   lv.np[l], lv.dense[l] != 0u, l, rows);
   cell.word0 = ((uint64_t)l * rows + row) * BRICK3_LANES + lane0;
   return cell;
+}
+
+// The cell of sample s (x: (N, 3) f32) at level l.
+__device__ __forceinline__ Brick3Cell brick3_cell(
+    const float* __restrict__ x, int64_t s, int l, uint32_t rows,
+    const Brick3Levels& lv) {
+  const float p[3] = {__ldg(x + 3 * s), __ldg(x + 3 * s + 1),
+                      __ldg(x + 3 * s + 2)};
+  return brick3_cell_at(p, l, rows, lv);
 }
 
 // Host side: the per-level parameters of the C entry points.

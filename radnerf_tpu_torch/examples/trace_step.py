@@ -9,10 +9,15 @@ Python stacks, then prints:
   - the top 40 device kernels by time per step, with their counts;
   - a rollup by the port function that launched them: the innermost
     radnerf_tpu_torch/ function around the launching op (the trace's
-    Python-function events, read from its Chrome trace export),
-    "(backward) <node>" for an op of autograd's backward with no port
-    function around it, and "(csrc launch) <kernel>" for a hand-written
-    kernel launched through ctypes outside any PyTorch op.
+    Python-function events, read from its Chrome trace export). An op of
+    autograd's backward goes under the port function that ran the
+    forward op whose autograd node it belongs to, as "<function>
+    (backward)": the trace's forward-backward flow events tie the node
+    to that forward op. "(backward) <node>" is left for a node with no
+    flow event or whose forward op ran outside the port, and
+    "(csrc launch) <kernel>" for a hand-written kernel launched through
+    ctypes outside any PyTorch op; the share of device time under
+    neither a port function nor its backward is printed as unattributed.
 On the CPU the same tables hold the host ops' self time, and the device
 time is "not measured".
 
@@ -59,47 +64,75 @@ def _port_frame(name: str) -> str | None:
     return name[name.index(PKG):]
 
 
+def _flows(events) -> tuple[dict, dict]:
+    """The forward-backward flow events ("cat": "fwdbwd"): each start sits
+    on the forward op that created an autograd node, its finish (same id)
+    on the node's op in the backward. Returns ({(pid, tid, ts) of a
+    start: id}, {(pid, tid, ts) of a finish: id})."""
+    start, finish = {}, {}
+    for e in events:
+        if e.get("cat") == "fwdbwd" and e.get("ph") in ("s", "f"):
+            side = start if e["ph"] == "s" else finish
+            side[(e["pid"], e["tid"], e["ts"])] = e["id"]
+    return start, finish
+
+
 def attribute_ops(events) -> tuple[dict, list]:
     """Per thread, a sweep over the nested op and Python-function events:
     ({External id: source} of every op, [(op name, self us, source)]).
-    An op's source is its innermost enclosing port function, else the
-    autograd node whose backward ran it, else "(none)"."""
+    An op's source is its innermost enclosing port function; for an op of
+    autograd's backward, "<port function> (backward)" of the forward op
+    that created its node (the flow events), else "(backward) <node>";
+    else "(none)"."""
+    flow_start, flow_finish = _flows(events)
     threads = collections.defaultdict(list)
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in ("cpu_op",
                                                   "python_function"):
             threads[(e["pid"], e["tid"])].append(e)
-    source, ops = {}, []
+    # ops: (op, source, id of its enclosing backward-node op or None);
+    # node_flow: that op's id -> the flow id of the node it evaluates
+    ops, fwd_src, node_flow = [], {}, {}
+    child_us = collections.Counter()
     for evs in threads.values():
         evs.sort(key=lambda e: (e["ts"], -e["dur"]))
-        stack, child_us = [], {}
+        stack = []
         for e in evs:
             while stack and stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]:
                 stack.pop()
             if e["cat"] == "cpu_op":
-                src = None
-                for o in reversed(stack):
+                src, node = None, None
+                for o in reversed([*stack, e]):
                     if o["cat"] == "python_function":
                         src = _port_frame(o["name"])
                     elif o["name"].startswith(BACKWARD):
                         src = "(backward) " + o["name"][len(BACKWARD):]
+                        node = id(o)
                     if src is not None:
                         break
-                if src is None and e["name"].startswith(BACKWARD):
-                    src = "(backward) " + e["name"][len(BACKWARD):]
+                fid = flow_finish.get((e["pid"], e["tid"], e["ts"]))
+                if fid is not None and node is not None:
+                    node_flow.setdefault(node, fid)
                 src = src or "(none)"
-                ext = e.get("args", {}).get("External id")
-                if ext:
-                    source[ext] = src
+                fid = flow_start.get((e["pid"], e["tid"], e["ts"]))
+                if fid is not None:
+                    fwd_src.setdefault(fid, src)
                 parent = next((o for o in reversed(stack)
                                if o["cat"] == "cpu_op"), None)
                 if parent is not None:
-                    child_us[id(parent)] = child_us.get(id(parent), 0.0) \
-                        + e["dur"]
-                ops.append((e, src))
+                    child_us[id(parent)] += e["dur"]
+                ops.append((e, src, node))
             stack.append(e)
-    return source, [(e["name"], e["dur"] - child_us.get(id(e), 0.0), src)
-                    for e, src in ops]
+    source, out = {}, []
+    for e, src, node in ops:
+        fwd = fwd_src.get(node_flow.get(node), "")
+        if fwd.startswith(PKG):
+            src = f"{fwd} (backward)"
+        ext = e.get("args", {}).get("External id")
+        if ext:
+            source[ext] = src
+        out.append((e["name"], e["dur"] - child_us[id(e)], src))
+    return source, out
 
 
 def device_items(events, source: dict) -> list:
@@ -130,7 +163,12 @@ def report(items, steps: int, what: str) -> dict:
     print("\n== by framework op path ==")
     for src, us in by_src.most_common(30):
         print(f"{us / 1e3 / steps:8.2f} ms  {src[:140]}")
+    # under no port function, forward or backward
+    loose = sum(us for src, us in by_src.items() if not src.startswith(PKG))
+    print(f"unattributed: {loose / 1e3 / steps:.2f} ms/step "
+          f"({100 * loose / max(total, 1e-9):.1f}% of the total)")
     return {"total_ms_per_step": total / 1e3 / steps,
+            "unattributed_ms_per_step": loose / 1e3 / steps,
             "by_source_ms": {k: v / 1e3 / steps for k, v in by_src.items()}}
 
 

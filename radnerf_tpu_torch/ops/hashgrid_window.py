@@ -44,7 +44,10 @@ def tcnn_stream(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     gt = g.T.reshape(L, 2, N).to(torch.float32).transpose(0, 1)  # (2, L, N)
     vals = (w.to(torch.float32)[None] * gt[:, :, None, :]).reshape(
         2, L, 8 * N)
-    return idx.reshape(L, 8 * N).to(torch.int32).contiguous(), vals
+    # (the product's strides follow its inputs', which at N = 1 are not
+    # the contiguous ones the kernel takes)
+    return (idx.reshape(L, 8 * N).to(torch.int32).contiguous(),
+            vals.contiguous())
 
 
 def hashgrid_table_grad_window(idx: torch.Tensor, w: torch.Tensor,

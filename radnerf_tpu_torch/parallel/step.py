@@ -20,6 +20,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_paths(tree, prefix: str = "") -> list[str]:
+    """The path of every leaf of `tree_leaves(tree)`, in the same order:
+    dict keys and list indices joined by '/' (e.g. 'model/geo/w/0')."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in tree_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
 def tree_unflatten(tree, leaves: list):
     """`tree`'s structure filled with `leaves` (in tree_leaves order)."""
     it = iter(leaves)

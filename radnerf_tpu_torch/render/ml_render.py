@@ -277,7 +277,12 @@ def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
     """(N, 3) camera-frame directions x (N, 3, 4) or (3, 4) camera-to-world
     -> (rays_o, rays_d), each (N, 3); directions are not normalized."""
     c2w = c2w.expand(directions.shape[0], 3, 4)
-    rays_d = torch.einsum("nc,nbc->nb", directions, c2w[..., :3])
+    # the 3-term dot products written out, ((d0 r0 + d1 r1) + d2 r2), as
+    # the CPU's einsum sums them: the card's batched matmul rounds them
+    # otherwise, and a ray one ulp apart moves its samples' encode
+    d = directions[:, None, :]
+    rays_d = (d[..., 0] * c2w[..., 0] + d[..., 1] * c2w[..., 1]
+              + d[..., 2] * c2w[..., 2])
     return c2w[..., 3], rays_d
 
 

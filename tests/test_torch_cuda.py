@@ -15,6 +15,7 @@ from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
 from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
 from radnerf_tpu_torch.ops import hashgrid as thg
 from radnerf_tpu_torch.ops import hashgrid_brick3 as tb3
+from radnerf_tpu_torch.ops import hashgrid_window as thw
 from radnerf_tpu_torch.ops import marching as tm
 from radnerf_tpu_torch.ops import stream_table_grad as tsg
 
@@ -154,6 +155,63 @@ def test_stream_table_grad_kernel_equals_plain(dev, name):
         tsg.stream_table_grad(name, kd, vd[:1].contiguous(), T)
 
 
+# streams made for the warp aggregation of brick3_table_grad and
+# tcnn_table_grad: every sample in one cell, samples spread uniformly,
+# runs of 8 on one point with every third gradient zero, rays of 64
+# samples 2^-10 apart at a ragged length; and single samples
+AGG_CASES = [("one cell", 3001), ("uniform", 3001),
+             ("runs of 8, zero-gradient members", 3001),
+             ("rays, ragged length", 2988), ("uniform", 1), ("uniform", 33)]
+
+
+def _agg_inputs(case, n, L, dev):
+    gen = torch.Generator().manual_seed(6)
+    g = torch.randn((n, 2 * L), generator=gen)
+    k = torch.arange(n)
+    if case == "one cell":
+        x = torch.rand((1, 3), generator=gen).expand(n, 3)
+    elif case == "uniform":
+        x = torch.rand((n, 3), generator=gen)
+    elif case.startswith("runs of 8"):
+        x = torch.rand((-(-n // 8), 3), generator=gen)[k // 8]
+        g = torch.where((k % 3 == 0)[:, None], 0.0, g)
+    else:
+        d = torch.randn((-(-n // 64), 3), generator=gen)
+        d = d / d.norm(dim=1, keepdim=True)
+        o = 0.25 + 0.5 * torch.rand((-(-n // 64), 3), generator=gen)
+        x = (o[k // 64] + d[k // 64] * ((k % 64)[:, None] * 2.0**-10)
+             ).clamp(0.0, 1.0)
+    return x.contiguous().to(dev), g.contiguous().to(dev)
+
+
+@pytest.mark.parametrize("case,n", AGG_CASES)
+def test_table_grad_kernels_on_aggregation_streams(dev, case, n):
+    cfg = thg.HashGridConfig(n_levels=6, log2_table_size=13,
+                             base_resolution=4, per_level_scale=2.0)
+    L, T = cfg.n_levels, cfg.table_size
+    x, g = _agg_inputs(case, n, L, dev)
+    # brick3: within 2 (n - 1) u sum|terms| of the twin per entry
+    got = tb3.hashgrid_table_grad_brick3(x, g, cfg)
+    ref = tb3._table_grad_plain(x, g, cfg)
+    idx, w = tb3._corner_terms(x, cfg)
+    terms = (w[..., None] * g.reshape(-1, L, 2).permute(1, 0, 2)[:, None]
+             ).abs().reshape(-1, 2)
+    abs_sum = torch.zeros((L * T, 2), device=dev).index_add_(
+        0, idx.reshape(-1), terms)
+    count = torch.zeros(L * T, device=dev).index_add_(
+        0, idx.reshape(-1), torch.ones_like(terms[:, 0]))
+    tol = 2 * (count[:, None] - 1).clamp_min(1) * 2.0**-24 * abs_sum
+    assert ((got - ref).abs().reshape(-1, 2) <= tol).all()
+    if case == "one cell":
+        assert count.max() == n
+    # tcnn on the dedup path's corner-major stream of the same samples
+    keys, vals = thw.tcnn_stream(*thg.hashgrid_indices_cm(x, cfg), g)
+    got = tsg.stream_table_grad("tcnn_table_grad", keys, vals, T)
+    ref = tsg.stream_table_grad_plain("tcnn_table_grad", keys, vals, T)
+    tol, _ = _order_tol("tcnn_table_grad", keys, vals, T)
+    assert ((got - ref).abs() <= tol).all()
+
+
 @pytest.mark.parametrize("impl,kernel", [
     ("dedup", "tcnn_table_grad"), ("window", "tcnn_table_grad"),
     ("pallas", "tcnn_table_grad"), ("slab", "slab_table_grad"),
@@ -221,3 +279,19 @@ def test_proto_gather_kernels_equal_plain(dev):
     assert ((got.cpu() - cpu).abs() <= bound.cpu()).all()
     with pytest.raises(ValueError):
         tpg.pallas_scatter(x["idx"], x["vals"].double(), n_rows)
+
+
+def test_get_rays_on_the_card_equals_the_cpu(dev):
+    """The ray directions are written-out dot products, so the card
+    computes the CPU's bits (a batched matmul would round them
+    otherwise, and move the samples' encode)."""
+    from radnerf_tpu_torch.render.ml_render import get_rays
+
+    gen = torch.Generator().manual_seed(7)
+    d = torch.randn((4099, 3), generator=gen)
+    c2w = torch.randn((4099, 3, 4), generator=gen)
+    for pose in (c2w, c2w[0]):
+        o_cpu, d_cpu = get_rays(d, pose)
+        o_dev, d_dev = get_rays(d.to(dev), pose.to(dev))
+        assert torch.equal(d_dev.cpu(), d_cpu)
+        assert torch.equal(o_dev.cpu(), o_cpu)

@@ -128,3 +128,31 @@ def test_profile_steps_encode_stub_takes_effect():
         g = table_grad()
     assert int((g != 0).sum()) <= 1 and g[1:].abs().sum() == 0
     assert touched > 2
+
+
+def test_trace_step_files_backward_ops_under_the_forward_function():
+    """A forward and backward through ops/compositing.py::segmented_cumsum
+    (its blocked form, one bmm): the backward's ops, whose autograd nodes
+    the forward created, go under that function as its backward; the
+    loss's own nodes, created outside the port, stay under their node."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from radnerf_tpu_torch.ops.compositing import segmented_cumsum
+
+    gen = torch.Generator().manual_seed(0)
+    v = torch.randn((1024, 2), generator=gen, requires_grad=True)
+    seg = torch.zeros(1024, dtype=torch.bool)
+    seg[::100] = True
+    with profile(activities=[ProfilerActivity.CPU], with_stack=True) as prof:
+        segmented_cumsum(v, seg).square().sum().backward()
+    _, ops = trace_step.attribute_ops(trace_step.load_trace(prof))
+    by_src = {}
+    for name, _, src in ops:
+        by_src.setdefault(src, []).append(name)
+    fwd = [s for s in by_src if s.endswith(": segmented_cumsum")]
+    assert len(fwd) == 1 and fwd[0].startswith(
+        "radnerf_tpu_torch/ops/compositing.py(")
+    bwd = by_src.get(f"{fwd[0]} (backward)", [])
+    assert "BmmBackward0" in bwd and "aten::bmm" in bwd
+    assert not any(s.startswith("(backward) Bmm") for s in by_src)
+    assert "(backward) PowBackward0" in by_src       # the test's square()

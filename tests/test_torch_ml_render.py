@@ -191,3 +191,17 @@ def test_unported_paths_raise(models):
                  RenderConfig(test_layout="dense")):
         with pytest.raises(NotImplementedError):
             ml_render_test(tp, ts, tcfg, tg, o, d, d, rcfg)
+
+
+def test_get_rays_writes_out_the_cpu_einsum():
+    """get_rays' written-out dot products give the CPU einsum's bits (the
+    card's batched matmul would round them otherwise; the card test holds
+    the card to the same bits), for per-ray and shared poses."""
+    gen = torch.Generator().manual_seed(0)
+    d = torch.randn((5000, 3), generator=gen)
+    c2w = torch.randn((5000, 3, 4), generator=gen)
+    for pose in (c2w, c2w[0]):
+        o, r = get_rays(d, pose)
+        full = pose.expand(5000, 3, 4)
+        assert torch.equal(r, torch.einsum("nc,nbc->nb", d, full[..., :3]))
+        assert torch.equal(o, full[..., 3])

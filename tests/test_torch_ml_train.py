@@ -44,7 +44,7 @@ from radnerf_tpu.train.trainer import jnp_get_rays
 from radnerf_tpu_torch.convert import params_from_jax, state_from_jax
 from radnerf_tpu_torch.models.mngp import MNGPConfig
 from radnerf_tpu_torch.parallel.step import (
-    microbatched_value_and_grad, tree_leaves,
+    microbatched_value_and_grad, tree_leaves, tree_paths,
 )
 from radnerf_tpu_torch.render.ml_render import ml_render_train
 from radnerf_tpu_torch.render.render import RenderConfig
@@ -286,3 +286,31 @@ def test_unported_training_paths_raise():
                  RenderConfig(layout="flat", union_sampling=False)):
         with pytest.raises(NotImplementedError):
             ml_render_train({}, {}, tcfg, {}, o, d, d, rcfg)
+
+
+def test_tree_paths_name_the_leaves_in_jax_order():
+    """tree_paths names each leaf of tree_leaves (the order in which the
+    card-vs-CPU step check reports its gradient leaves) by the same path
+    as JAX's tree_leaves_with_path on the same structure."""
+    shapes = {"model": {"hash_table": (4,), "geo": {"w": [(1,), (2,)],
+                                                   "b": [(3,), (5,)]}},
+              "gate": {"encoder": {"w": [(6,)], "b": [(7,)]}}}
+
+    def build(t, leaf):
+        if isinstance(t, dict):
+            return {k: build(v, leaf) for k, v in t.items()}
+        if isinstance(t, list):
+            return [build(v, leaf) for v in t]
+        return leaf(t)
+
+    jtree = build(shapes, np.zeros)
+    ttree = build(shapes, torch.zeros)
+    jpaths = [
+        "/".join(str(getattr(k, "key", getattr(k, "idx", None)))
+                 for k in path)
+        for path, _ in jax.tree_util.tree_leaves_with_path(jtree)]
+    paths = tree_paths(ttree)
+    assert paths == jpaths
+    assert paths[0] == "gate/encoder/b/0"
+    assert [tuple(t.shape) for t in tree_leaves(ttree)] == [
+        np.shape(a) for a in jax.tree_util.tree_leaves(jtree)]
