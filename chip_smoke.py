@@ -2,7 +2,7 @@
 """Drive the PyTorch port's Rad-NeRF MoE render and training, and its
 examples' microbenchmark kernels, on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--compare-csrc LABEL=DIR ...]
+    python3 chip_smoke.py
 
 Phases (any failure is an uncaught error and a nonzero exit; there is no
 CPU fallback):
@@ -34,8 +34,7 @@ CPU fallback):
      brick scatter kernels on the streams their families' backwards build
      from the same samples and gradient), with each kernel's and library
      call's device time alone (a CUDA graph of 20 calls), the PyTorch
-     forwards of the other families timed on the same samples, rows 3, 4
-     and 7 through the --compare-csrc builds on the same inputs, the
+     forwards of the other families timed on the same samples, the
      brick3 and tcnn table gradients on four streams made for their warp
      aggregation, and the encode on one warmup grid update's 2,097,152
      cells; then TRAIN_STEPS steps of
@@ -81,26 +80,22 @@ the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
 
 from __future__ import annotations
 
-import argparse
 import contextlib
-import ctypes
 import dataclasses
 import json
 import subprocess
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-import radnerf_tpu_torch.models.gates as gates_mod
 import radnerf_tpu_torch.render.ml_render as ml_render_mod
 from radnerf_tpu_torch import kernels
 from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
 from radnerf_tpu_torch.examples import profile_step
 from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
 from radnerf_tpu_torch.models.gates import init_ray_gate
-from radnerf_tpu_torch.models.mlp import _Logistic
+from radnerf_tpu_torch.models.mlp import layer_tap
 from radnerf_tpu_torch.models.mngp import MNGPConfig, init_mngp, init_mngp_state
 from radnerf_tpu_torch.models.ngp import (
     all_cell_coords, cell_world_positions, scene_center_half,
@@ -180,14 +175,22 @@ STORE_IMAGES, STORE_SIDE = 32, 64   # the ray store: 32 cameras x 64x64
 # held against the CPU step that takes the card's forward values. What
 # is left is the backward's: each bf16 gradient one rounding apart, one
 # bf16 ulp of a leaf entry being at most 2^-7 of the leaf's largest, so
-# 2% holds 2.5 of them. Except where the leaf cancels: the ray gate. Its
-# softmax makes each logit's gradient a difference, p_k (g_k - p.g),
-# which training drives towards zero as the experts agree; every term of
-# every gate leaf carries it through the gate's backward, one bf16
-# rounding apart on the two sides at each layer (the logits' gradient
-# cast to bf16 first), i.e. a few 2^-8 of the term, not of the sum; so the
-# gate's leaves are held at 2% of their largest sum of term magnitudes,
-# |x|^T |dL/dh| (bias: sum |dL/dh|), not of their own largest entry.
+# 2% holds 2.5 of them. Except where the leaf cancels: the ray gate's
+# output layer (gate/encoder/b/4 read 0.0533 of its largest entry on an
+# H100). Its softmax makes each logit's gradient a difference, p_k (g_k -
+# p.g), which training drives towards zero as the experts agree, and
+# which each side casts to bf16 from f32 values far closer than a bf16
+# ulp: each term one rounding apart at most, 2^-7 of itself. The layer's
+# leaves sum these terms over the rays (the weight: times the layer's
+# input, the same on both sides) in f32, in two orders (2 K 2^-24 of
+# the sum of magnitudes, K = CPU_RAYS), and round the entry once more to
+# bf16 (2^-7 of it): |diff| <= (2^-6 + 2 K 2^-24) sum|terms| < 0.016
+# sum|terms|, while the entries themselves cancel to 1.1-772x below it
+# (H100 runs). So the output layer's two leaves are held at 2% of their
+# largest sum of term magnitudes, |x|^T |dL/dlogits| (bias: sum
+# |dL/dlogits|); the inner gate layers, never seen beyond 0.0071 of
+# their largest entry on an H100, are held at it like every other leaf,
+# which also catches a halved gate gradient (checked on every batch).
 TRAIN_CPU_LOSS_RTOL = 1e-2
 TRAIN_CPU_GRAD_RTOL = 2e-2
 # the same in float32: the MLPs' f32 sums in other orders (cuBLAS vs the
@@ -637,11 +640,14 @@ def stream_checks(xn, g, hcfg, at: str) -> dict:
 def aggregation_inputs(n: int, L: int, dev) -> dict:
     """Positions in [0, 1]^3 and output gradients (N, 2L) made for the warp
     aggregation of the table-gradient kernels (torch.Generator seed 9):
-    every sample in one cell (every warp one group); samples spread
-    uniformly (hardly any group); runs of 8 samples on one point with
-    every third sample's gradient zero (groups with zero-gradient
-    members); rays of 64 samples 2^-10 apart, cut to a length that is a
-    multiple neither of the kernels' 64-sample tile nor of 32."""
+    every sample in one cell with positive gradients (every warp one
+    group; each entry's terms of one sign, so its order bound is 2 (n - 1)
+    2^-24 of the entry itself, and a group sum that left out lanes would
+    fail it); samples spread uniformly (hardly any group); runs of 8
+    samples on one point with every third sample's gradient zero (groups
+    with zero-gradient members); rays of 64 samples 2^-10 apart, cut to a
+    length that is a multiple neither of the kernels' 64-sample tile nor
+    of 32."""
     gen = torch.Generator(device=dev).manual_seed(9)
 
     def u(*shape):
@@ -657,7 +663,8 @@ def aggregation_inputs(n: int, L: int, dev) -> dict:
            ).clamp(0.0, 1.0)
     m = n - 13
     return {
-        "one cell": (u(1, 3).expand(n, 3).contiguous(), g),
+        "one cell, positive gradients": (u(1, 3).expand(n, 3).contiguous(),
+                                         g.abs()),
         "uniform": (u(n, 3), g),
         "runs of 8, zero-gradient members": (
             u(-(-n // 8), 3)[k // 8].contiguous(),
@@ -696,105 +703,6 @@ def aggregation_checks(hcfg, n: int, dev) -> dict:
                   f"{ORDER_CHECK} ok, max|diff| {float(e.max()):.3g}, "
                   f"{recs[key][-1]['max_err_over_tol']:.3g} of its bound")
     return recs
-
-
-def build_alternates(specs: list) -> dict:
-    """--compare-csrc LABEL=DIR: brick3_table_grad and tcnn_table_grad built
-    from DIR/brick3_table_grad.cu and DIR/stream_table_grad.cu, where DIR
-    has them (another version of the same C entry points, e.g. the csrc/
-    of a parent commit unpacked outside the tracked tree), with this
-    tree's nvcc flags, into DIR/_build. Returns {label: {kernel: ctypes
-    entry point}}."""
-    nvcc = kernels.nvcc_path()
-    jobs = []
-    for spec in specs:
-        label, d = spec.split("=", 1)
-        d = Path(d).resolve()
-        (d / "_build").mkdir(exist_ok=True)
-        for src, names in (("brick3_table_grad.cu", ["brick3_table_grad"]),
-                           ("stream_table_grad.cu", ["tcnn_table_grad"])):
-            if not (d / src).exists():
-                continue
-            lib = d / "_build" / f"lib{Path(src).stem}.so"
-            cmd = [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                   str(lib), str(d / src)]
-            jobs.append((label, src, names, lib, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-    alts = {}
-    for label, src, names, lib, proc in jobs:
-        log, _ = proc.communicate()
-        check(proc.returncode == 0, f"--compare-csrc {label}: nvcc {src} "
-                                    f"failed\n{log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[compare] {label} {src}: {line.strip()}")
-        cdll = ctypes.CDLL(str(lib))
-        for name in names:
-            fn = getattr(cdll, name)
-            fn.argtypes = kernels.KERNELS[name][1]
-            fn.restype = ctypes.c_int
-            alts.setdefault(label, {})[name] = fn
-    return alts
-
-
-@contextlib.contextmanager
-def entry_points(fns: dict):
-    """Route kernels.launch of the named kernels to other entry points
-    (same C signatures) for the duration of the block."""
-    saved = {name: kernels._entry.get(name) for name in fns}
-    kernels._entry.update(fns)
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            if fn is None:
-                kernels._entry.pop(name, None)
-            else:
-                kernels._entry[name] = fn
-
-
-def compare_alternates(alts: dict, xn, g, hcfg) -> dict:
-    """Rows 3, 4 and 7 (brick3_table_grad, tcnn_table_grad on the dedup
-    and the pallas stream) on this microbatch's inputs, through this
-    tree's kernels and each alternate build: every result held against
-    the plain twin under the summation-order bound, and the device time
-    of each (graph_ms), this tree's measured first and again last.
-    Returns {row: {label: device ms}}."""
-    T = hcfg.table_size
-    cm = tcnn_stream(*hashgrid_indices_cm(xn, hcfg), g)
-    pm = point_stream(*hashgrid_indices(xn, hcfg), g)
-    rows = {
-        "brick3_table_grad": (
-            "brick3_table_grad", lambda: hashgrid_table_grad_brick3(
-                xn, g, hcfg),
-            lambda got: brick3_grad_err(xn, g, hcfg, got)[:2]),
-        "tcnn_table_grad (dedup stream)": (
-            "tcnn_table_grad", lambda: stream_table_grad(
-                "tcnn_table_grad", *cm, T),
-            lambda got: stream_grad_err("tcnn_table_grad", *cm, T, got)[:2]),
-        "tcnn_table_grad (pallas stream)": (
-            "tcnn_table_grad", lambda: stream_table_grad(
-                "tcnn_table_grad", *pm, T),
-            lambda got: stream_grad_err("tcnn_table_grad", *pm, T, got)[:2]),
-    }
-    out = {}
-    for row, (name, fn, err_of) in rows.items():
-        times = {"this tree": graph_ms(fn)}
-        for label, fns in alts.items():
-            if name not in fns:
-                continue
-            with entry_points({name: fns[name]}):
-                err, tol = err_of(fn())
-                torch.cuda.synchronize()
-                check(bool((err <= tol).all()), f"--compare-csrc {label} "
-                      f"{row}: max|diff| {float(err.max())}")
-                times[label] = graph_ms(fn)
-        times["this tree, again"] = graph_ms(fn)
-        out[row] = times
-        print(f"[compare] {row} on the device (CUDA graph), same inputs: "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
-    return out
 
 
 def forward_times(table, xn, hcfg) -> dict:
@@ -1005,15 +913,13 @@ def microbatch(trainer) -> dict:
             "n_valid": int(m["total"])}
 
 
-def microbatch_checks(trainer, at: str, streams: bool = False,
-                      alternates: dict | None = None) -> dict:
+def microbatch_checks(trainer, at: str, streams: bool = False) -> dict:
     """Kernels 1-3 against their plain versions at one training
     microbatch's shapes (`microbatch`): kernel 2 on the lattice
     candidates, kernels 1 and 3 on the marched samples and gradient; with
     `streams`, also kernels 4-7 and the forwards' times on the same
-    samples and gradient, and rows 3, 4 and 7 against the `alternates`
-    builds (compare_alternates). Returns {kernel name or contract: check
-    record} (and "forward_ms", "compare")."""
+    samples and gradient. Returns {kernel name or contract: check record}
+    (and "forward_ms")."""
     b = microbatch(trainer)
     hcfg = trainer.cfg.hash
     xn, g, n_valid = b["xn"], b["g"], b["n_valid"]
@@ -1031,7 +937,6 @@ def microbatch_checks(trainer, at: str, streams: bool = False,
         print_check(name, rec)
     if streams:
         recs["forward_ms"] = forward_times(table, xn, hcfg)
-        recs["compare"] = compare_alternates(alternates or {}, xn, g, hcfg)
     return recs
 
 
@@ -1170,8 +1075,7 @@ def check_launches(launches: dict, cfg: MNGPConfig, n_steps: int,
     check(launches == want, f"{label} launches {launches}, expected {want}")
 
 
-def train_phase(cfg: MNGPConfig, store: dict, dev,
-                alternates: dict) -> tuple:
+def train_phase(cfg: MNGPConfig, store: dict, dev) -> tuple:
     """Phase 5, brick3 at full width. Returns ({kernel or contract: its
     check records at training shapes}, launch counts of the TRAIN_STEPS
     steps, summary)."""
@@ -1179,9 +1083,8 @@ def train_phase(cfg: MNGPConfig, store: dict, dev,
     trainer.update_grid(warmup=True)        # the state a first step sees
     checks = microbatch_checks(
         trainer, f"train step 0 (budget {trainer.rcfg.budget_per_ray})",
-        streams=True, alternates=alternates)
+        streams=True)
     forwards = checks.pop("forward_ms")
-    compare = checks.pop("compare")
     checks = {name: [rec] for name, rec in checks.items()}
     for key, recs in aggregation_checks(cfg.hash, AGG_SAMPLES, dev).items():
         checks[key] += recs
@@ -1204,7 +1107,6 @@ def train_phase(cfg: MNGPConfig, store: dict, dev,
         f"one training step ({trainer.tcfg.batch_size} rays, {mb} "
         f"microbatches)")
     summary["forward_ms"] = forwards
-    summary["compare_device_ms"] = compare
     summary["encode_ms"] = encode_times(trainer, "train")
     train_vs_cpu(trainer)
     return checks, launches, summary
@@ -1253,33 +1155,50 @@ def leaf_report(paths, card, cpu, scale: dict | None = None) -> list:
 
 
 class StepProbe:
-    """What one training step's render computes on its way: the encode's
-    features, and every MLP's input and every layer's product and output
-    before its activation (the ray gate's, the geo and the rgb MLPs'),
-    recorded by wrappers of the names render/ml_render.py and
-    models/gates.py call. With `pin` (a probe recorded on another device,
-    the same step) the step takes that probe's forward: each encode
-    feature, MLP input and layer output is replaced by the pinned value
-    (the gradient path stays this device's: ref + (h - h)), after
-    measuring how far this device's own value, computed from the same
-    (pinned) inputs, lies from it: `feat_equal`; per MLP input max
-    |x - ref| / (ulp(x) + 2^-16) and per layer max |h - ref| / (ulp(mm) +
-    ulp(h) + 2 K 2^-23 (|x| @ |w|)), both in `gap` (see
-    TRAIN_CPU_GRAD_RTOL); and `gate`, per layer of the ray gate, its
-    input and (once backward has run) its output's gradient."""
+    """What one training step's render computes on its way, seen through
+    models/mlp.py's layer_tap and a pass-through wrapper of the name
+    render/ml_render.py calls for the encode (the step runs the port's own
+    code): the encode's features, every MLP input, and each layer's
+    product and output before its activation, in call order and named by
+    the bundle's MLP they belong to (`bind`; apply_mlp on any other
+    parameters fails the check); and the ray gate's output layer, its
+    input and (once backward has run) its output's gradient. With `pin` (a
+    probe recorded on another device, the same step) the step takes that
+    probe's forward: each encode feature, MLP input and layer output is
+    replaced by the pinned value (the gradient path stays this device's:
+    ref + (h - h)), after measuring how far this device's own value,
+    computed from the same (pinned) inputs, lies from it: `feat_equal`;
+    per MLP input max |x - ref| / (ulp(x) + 2^-16) and per layer max
+    |h - ref| / (ulp(mm) + ulp(h) + 2 K 2^-23 (|x| @ |w|)), both in `gap`
+    (see TRAIN_CPU_GRAD_RTOL)."""
 
     def __init__(self, pin: "StepProbe | None" = None):
         self.feat, self.inputs, self.layers = [], [], []
         self.pin = pin
         self.feat_equal, self.gap = True, []
-        self.gate = []
+        self.gate_out, self.names = {}, {}
+
+    def bind(self, bundle) -> None:
+        """Name the MLPs of the bundle that the step runs on, by the
+        identity of the parameter dicts apply_mlp receives."""
+        self.names = {id(bundle["gate"]["encoder"]): "gate",
+                      id(bundle["model"]["geo"]): "geo",
+                      id(bundle["model"]["rgb"]): "rgb"}
+
+    @staticmethod
+    def _pinned(mine: list, pinned: list, key):
+        """The pinned probe's record at this call, which must be of the
+        same MLP and layer."""
+        rec = pinned[len(mine)]
+        check(rec[0] == key, f"StepProbe: {key} replayed against {rec[0]}")
+        return rec
 
     @staticmethod
     def _take(h, ref):
-        return ref.to(h.device) + (h - h.detach())
+        return ref + (h - h.detach())
 
     def _encode(self, params, state, cfg, xyz, packed=None):
-        out = self._orig["_encode"](params, state, cfg, xyz, packed=packed)
+        out = self._encode_fn(params, state, cfg, xyz, packed=packed)
         if self.pin is not None:
             ref = self.pin.feat[len(self.feat)].to(out.device)
             self.feat_equal &= bool(torch.equal(out.detach(), ref))
@@ -1287,65 +1206,54 @@ class StepProbe:
         self.feat.append(out.detach())
         return out
 
-    def _mlp(self, params, x, out_act=None, compute_dtype=torch.float32):
-        # models/mlp.py::apply_mlp with each ReLU written as
-        # where(pre > 0, pre, 0) (the same values and gradient)
-        h = x.to(compute_dtype)
+    def mlp_input(self, params, x):
+        key = self.names.get(id(params))
+        check(key is not None, "StepProbe: apply_mlp ran on parameters "
+                               "outside the bundle's gate, geo and rgb MLPs")
         if self.pin is not None:
-            ref = self.pin.inputs[len(self.inputs)].to(h.device)
-            self.gap.append(float(((h.float() - ref.float()).abs() / (
-                bf16_ulp(torch.maximum(h.detach().abs(), ref.abs()))
+            ref = self._pinned(self.inputs, self.pin.inputs,
+                               key)[1].to(x.device)
+            xd = x.detach()
+            self.gap.append(float(((xd.float() - ref.float()).abs() / (
+                bf16_ulp(torch.maximum(xd.abs(), ref.abs()))
                 + 2.0**-16)).max()))
-            h = self._take(h, ref)
-        self.inputs.append(h.detach())
-        n = len(params["w"])
-        for i in range(n):
-            w = params["w"][i].to(compute_dtype)
-            b = params["b"][i].to(compute_dtype)
-            mm = torch.matmul(h, w)
-            out = mm + b.unsqueeze(-2)
-            if self.pin is not None:
-                ref, ref_mm, _ = self.pin.layers[len(self.layers)]
-                ref, ref_mm = ref.to(out.device), ref_mm.to(out.device)
-                acc = 2 * w.shape[-2] * 2.0**-23 * torch.matmul(
-                    h.detach().float().abs(), w.detach().float().abs())
-                tol = (bf16_ulp(torch.maximum(mm.detach().abs(),
-                                              ref_mm.abs()))
-                       + bf16_ulp(torch.maximum(out.detach().abs(),
-                                                ref.abs())) + acc)
-                self.gap.append(float(((out.detach().float() - ref.float())
-                                       .abs() / tol).max()))
-                out = self._take(out, ref)
-            if len(self.inputs) == 1:          # the gate's call is first
-                rec = {"x": h.detach()}
-                self.gate.append(rec)
-                if out.requires_grad:
-                    out.register_hook(
-                        lambda g, rec=rec: rec.update(grad=g.detach()))
-            self.layers.append((out.detach(), mm.detach(), i < n - 1))
-            h = out
-            if i < n - 1:
-                h = torch.where(h > 0, h, torch.zeros_like(h))
-        if out_act == "sigmoid":
-            h = _Logistic.apply(h)
-        elif out_act == "exp":
-            h = torch.exp(h)
-        return h
+            x = self._take(x, ref)
+        self.inputs.append((key, x.detach()))
+        return x
+
+    def layer(self, params, i, x, mm, out):
+        key = (self.names[id(params)], i)
+        last = i == len(params["w"]) - 1
+        if self.pin is not None:
+            _, ref, ref_mm, _ = self._pinned(self.layers, self.pin.layers,
+                                             key)
+            ref, ref_mm = ref.to(out.device), ref_mm.to(out.device)
+            w = params["w"][i].detach().to(x.dtype).float()
+            acc = 2 * w.shape[-2] * 2.0**-23 * torch.matmul(
+                x.detach().float().abs(), w.abs())
+            tol = (bf16_ulp(torch.maximum(mm.detach().abs(), ref_mm.abs()))
+                   + bf16_ulp(torch.maximum(out.detach().abs(), ref.abs()))
+                   + acc)
+            self.gap.append(float(((out.detach().float() - ref.float())
+                                   .abs() / tol).max()))
+            out = self._take(out, ref)
+        if key[0] == "gate" and last:
+            self.gate_out = {"layer": i, "x": x.detach()}
+            if out.requires_grad:
+                out.register_hook(
+                    lambda g: self.gate_out.update(grad=g.detach()))
+        self.layers.append((key, out.detach(), mm.detach(), not last))
+        return out
 
     @contextlib.contextmanager
     def patched(self):
-        names = {"_encode": self._encode, "apply_mlp": self._mlp}
-        saved = self._orig = {k: getattr(ml_render_mod, k) for k in names}
-        gate_mlp = gates_mod.apply_mlp
-        for k, fn in names.items():
-            setattr(ml_render_mod, k, fn)
-        gates_mod.apply_mlp = self._mlp
+        self._encode_fn = ml_render_mod._encode
+        ml_render_mod._encode = self._encode
         try:
-            yield self
+            with layer_tap(self):
+                yield self
         finally:
-            for k, fn in saved.items():
-                setattr(ml_render_mod, k, fn)
-            gates_mod.apply_mlp = gate_mlp
+            ml_render_mod._encode = self._encode_fn
 
 
 def probe_diffs(card: StepProbe, cpu: StepProbe) -> dict:
@@ -1356,11 +1264,11 @@ def probe_diffs(card: StepProbe, cpu: StepProbe) -> dict:
         "feat_diff": sum(int((x.cpu() != y).sum())
                          for x, y in zip(card.feat, cpu.feat)),
         "layer_diff": [int((x.cpu() != y).sum())
-                       for (x, _, _), (y, _, _) in zip(card.layers,
-                                                       cpu.layers)],
+                       for (_, x, _, _), (_, y, _, _) in zip(card.layers,
+                                                             cpu.layers)],
         "relu_flips": [int(((x.cpu() > 0) != (y > 0)).sum())
-                       for (x, _, hid), (y, _, _) in zip(card.layers,
-                                                         cpu.layers)
+                       for (_, x, _, hid), (_, y, _, _) in zip(card.layers,
+                                                               cpu.layers)
                        if hid]}
 
 
@@ -1377,6 +1285,8 @@ def cpu_step(trainer, cfg, batch, where, probe: StepProbe | None = None):
     b = {k: move(v) for k, v in batch.items()}
     vg = microbatched_value_and_grad(lambda p, bt: tt.loss_fn(
         p, state, bt, data, cfg, trainer.rcfg, trainer.tcfg), 1)
+    if probe is not None:
+        probe.bind(bundle)
     with (probe.patched() if probe is not None
           else contextlib.nullcontext()):
         (loss, aux), grads = vg(bundle, b)
@@ -1396,9 +1306,10 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
     once. With `pin_forward` (see TRAIN_CPU_GRAD_RTOL) the leaves are held
     against the CPU step that takes the card's forward (StepProbe), once
     the encode features are found equal and every MLP layer output within
-    its two bf16 roundings of the CPU's; the same on each batch of
-    PIN_SEEDS, further 256-ray batches of the same state. Returns the
-    report of every batch."""
+    its two bf16 roundings of the CPU's, the gate's output layer at its
+    term scale; the card's gate leaves halved must fail that comparison.
+    The same on each batch of PIN_SEEDS, further 256-ray batches of the
+    same state. Returns the report of every batch."""
     cfg = cfg or trainer.cfg
     dev = trainer.data["directions"].device
     cpu_dev = torch.device("cpu")
@@ -1425,23 +1336,33 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
         if pin_forward and ag["rm_samples"] == ac["rm_samples"]:
             pin = StepProbe(pin=pg)
             _, _, gp = cpu_step(trainer, cfg, batch, cpu_dev, pin)
-            scale = {}
-            for i, layer in enumerate(pin.gate):
-                t = layer["grad"].float().abs()
-                scale[f"gate/encoder/w/{i}"] = float(
-                    (layer["x"].float().abs().T @ t).max())
-                scale[f"gate/encoder/b/{i}"] = float(t.sum(0).max())
+            # the gate's output layer at its term scale (see
+            # TRAIN_CPU_GRAD_RTOL), every other leaf at its largest entry
+            out = pin.gate_out
+            t = out["grad"].float().abs()
+            scale = {f"gate/encoder/w/{out['layer']}": float(
+                         (out["x"].float().abs().T @ t).max()),
+                     f"gate/encoder/b/{out['layer']}": float(t.sum(0).max())}
             checked = leaf_report(paths, gg, gp, scale)
             top = max(checked, key=lambda r: r["ratio"])
             own = {r["leaf"]: r["ratio"] for r in leaf_report(paths, gg, gp)}
+            # planted faults: the card's gate leaves halved, all of them
+            # (must fail) and each term-scaled leaf alone (reported)
+            half = lambda keep: [0.5 * a if keep(p) else a
+                                 for p, a in zip(paths, gg)]
+            planted = max(r["ratio"] for r in leaf_report(
+                paths, half(lambda p: p.startswith("gate/")), gp, scale))
+            alone = {r["leaf"]: r["ratio"] for r in leaf_report(
+                paths, half(lambda p: p in scale), gp, scale)}
             rec.update(probe_diffs(pg, pc), feat_equal=pin.feat_equal,
                        rounding_gap=max(pin.gap),
                        rounding_gap_at=int(np.argmax(pin.gap)),
                        worst_pinned=top["ratio"],
                        worst_pinned_leaf=top["leaf"],
-                       gate={k: [own[k], scale[k] / max(
-                           float(gp[paths.index(k)].abs().max()), 1e-30)]
-                           for k in scale})
+                       planted_gate_half=planted,
+                       gate_out={k: [own[k], scale[k] / max(
+                           float(gp[paths.index(k)].abs().max()), 1e-30),
+                           alone[k]] for k in scale})
         worst = max(r["ratio"] for r in checked)
         report.append(rec)
         if seed == 3:
@@ -1468,20 +1389,14 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
             check(rec["feat_equal"], f"{label}: card and CPU encodes differ")
             check(rec["rounding_gap"] <= 1.0, f"{label}: an MLP output "
                   f"beyond its two bf16 roundings ({rec['rounding_gap']})")
+            check(rec["planted_gate_half"] > grad_rtol, f"{label}: the "
+                  "card's gate gradient halved passes the check")
         check(worst <= grad_rtol, f"{label}: card vs CPU gradient leaves "
                                   f"(batch seed {seed})")
     return report
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument(
-        "--compare-csrc", nargs="*", default=[], metavar="LABEL=DIR",
-        help="also time rows 3, 4 and 7 on the step-0 microbatch through "
-             "brick3_table_grad and tcnn_table_grad built from DIR (the "
-             "same C entry points, e.g. a parent commit's csrc/ unpacked "
-             "in a git-ignored directory)")
-    args = ap.parse_args(argv)
+def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is false); nothing was run")
@@ -1510,7 +1425,6 @@ def main(argv=None) -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
-    alternates = build_alternates(args.compare_csrc)
 
     cfg = MNGPConfig(scale=0.5, log2_T=19, grid_size=128, n_experts=2,
                      compute_dtype="bfloat16", hash_impl="brick3")
@@ -1640,8 +1554,7 @@ def main(argv=None) -> None:
 
     # 5. the training slice at full width
     store = ray_store(cfg, dev)
-    train_checks, train_launches, summary = train_phase(cfg, store, dev,
-                                                        alternates)
+    train_checks, train_launches, summary = train_phase(cfg, store, dev)
     print(json.dumps({"train": summary}))
     phase_launches = {"render": launches, "train_brick3": train_launches}
 

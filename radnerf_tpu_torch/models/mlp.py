@@ -9,6 +9,7 @@ Dense layers with biases and He-uniform init, as in the reference port.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -86,6 +87,26 @@ class _Logistic(torch.autograd.Function):
         return g * (s * (1.0 - s))
 
 
+_tap = None
+
+
+@contextlib.contextmanager
+def layer_tap(tap):
+    """Within the block, apply_mlp shows `tap` every MLP input and every
+    layer's result (for instrumentation: chip_smoke.py records a step's
+    forward on one device and replays it on another). It calls
+    tap.mlp_input(params, x) on the input cast to the compute dtype, and
+    tap.layer(params, i, x, mm, out) after layer i, with x the layer's
+    input, mm = x @ w and out = mm + b before the activation; either goes
+    on with the tensor the tap returns."""
+    global _tap
+    saved, _tap = _tap, tap
+    try:
+        yield tap
+    finally:
+        _tap = saved
+
+
 def apply_mlp(
     params: dict,
     x: torch.Tensor,
@@ -97,14 +118,19 @@ def apply_mlp(
     x (..., B, in) with stacked weights (K, in, out) gives (K, B, out).
     Each matmul rounds its float32-accumulated result to `compute_dtype`,
     as the reference's `preferred_element_type` does."""
+    tap = _tap
     h = x.to(compute_dtype)
+    if tap is not None:
+        h = tap.mlp_input(params, h)
     n = len(params["w"])
     for i in range(n):
         w = params["w"][i].to(compute_dtype)
         b = params["b"][i].to(compute_dtype)
-        h = torch.matmul(h, w) + b.unsqueeze(-2)
-        if i < n - 1:
-            h = torch.relu(h)
+        mm = torch.matmul(h, w)
+        out = mm + b.unsqueeze(-2)
+        if tap is not None:
+            out = tap.layer(params, i, h, mm, out)
+        h = torch.relu(out) if i < n - 1 else out
     if out_act == "sigmoid":
         h = _Logistic.apply(h)
     elif out_act == "exp":

@@ -156,7 +156,8 @@ def test_stream_table_grad_kernel_equals_plain(dev, name):
 
 
 # streams made for the warp aggregation of brick3_table_grad and
-# tcnn_table_grad: every sample in one cell, samples spread uniformly,
+# tcnn_table_grad: every sample in one cell with positive gradients (the
+# order bound then lies below the entry itself), samples spread uniformly,
 # runs of 8 on one point with every third gradient zero, rays of 64
 # samples 2^-10 apart at a ragged length; and single samples
 AGG_CASES = [("one cell", 3001), ("uniform", 3001),
@@ -170,6 +171,7 @@ def _agg_inputs(case, n, L, dev):
     k = torch.arange(n)
     if case == "one cell":
         x = torch.rand((1, 3), generator=gen).expand(n, 3)
+        g = g.abs()
     elif case == "uniform":
         x = torch.rand((n, 3), generator=gen)
     elif case.startswith("runs of 8"):

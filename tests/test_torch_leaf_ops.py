@@ -134,6 +134,55 @@ def test_mlp_bf16_matches_jax(stacked):
     assert (got == ref).mean() > 0.9
 
 
+@pytest.mark.parametrize("stacked", [False, True])
+def test_mlp_layer_tap_sees_every_layer_and_changes_nothing(stacked):
+    """layer_tap shows the MLP input and each layer's input, product and
+    pre-activation output; a tap that returns what it is given leaves the
+    bf16 output and the input gradient bit-equal, and what a tap returns
+    is what the MLP goes on with."""
+    _, tp = _mlp_pair(stacked)
+    x0 = torch.from_numpy(
+        np.random.default_rng(7).normal(size=(300, 32)).astype(np.float32))
+
+    def run(tap=None):
+        x = x0.clone().requires_grad_()
+        if tap is None:
+            y = tmlp.apply_mlp(tp, x, "sigmoid", torch.bfloat16)
+        else:
+            with tmlp.layer_tap(tap):
+                y = tmlp.apply_mlp(tp, x, "sigmoid", torch.bfloat16)
+        (g,) = torch.autograd.grad(y.float().sum(), x)
+        return y, g
+
+    class Record:
+        def __init__(self, zero_last=False):
+            self.seen, self.zero_last = [], zero_last
+
+        def mlp_input(self, params, x):
+            assert params is tp and x.dtype == torch.bfloat16
+            self.seen.append("input")
+            return x
+
+        def layer(self, params, i, x, mm, out):
+            w = params["w"][i].to(torch.bfloat16)
+            assert torch.equal(mm, torch.matmul(x, w))
+            assert torch.equal(out, mm + params["b"][i].to(
+                torch.bfloat16).unsqueeze(-2))
+            self.seen.append(i)
+            if self.zero_last and i == len(params["w"]) - 1:
+                return out * 0
+            return out
+
+    ref_y, ref_g = run()
+    rec = Record()
+    y, g = run(rec)
+    assert rec.seen == ["input", *range(len(tp["w"]))]
+    assert torch.equal(y, ref_y) and torch.equal(g, ref_g)
+    assert tmlp._tap is None
+    y, _ = run(Record(zero_last=True))
+    assert bool((y == 0.5).all())          # sigmoid of the replaced zeros
+
+
 def test_init_mlp_layout_and_he_bounds():
     gen = torch.Generator().manual_seed(0)
     tp = tmlp.init_stacked_mlp(gen, 3, 32, 64, 17, 1, device="cpu")
