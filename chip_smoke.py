@@ -35,9 +35,9 @@ CPU fallback):
      from the same samples and gradient), with each kernel's and library
      call's device time alone (a CUDA graph of 20 calls), the PyTorch
      forwards of the other families timed on the same samples, the
-     brick3 and tcnn table gradients on four streams made for their warp
-     aggregation, and the encode on one warmup grid update's 2,097,152
-     cells; then TRAIN_STEPS steps of
+     brick3, tcnn, slab and brick table gradients on six streams made for
+     their warp aggregation, and the encode on one warmup grid update's
+     2,097,152 cells; then TRAIN_STEPS steps of
      Trainer.fit_steps (grid updates every 16 steps, every cell below
      step 256, the adaptive budget), launch counts reset just before and
      read just after; loss and PSNR at intervals, train rays/s (median
@@ -624,17 +624,29 @@ def stream_checks(xn, g, hcfg, at: str) -> dict:
         "tcnn_table_grad", "hashgrid_table_grad", *point_stream(idx, w, g),
         T, at, lambda: hashgrid_table_grad(idx, w, g, hcfg))
     del idx, w
-    key, (v0e, v0o, v1e, v1o) = hashgrid_slab._bwd_streams(xn, g, hcfg)
     recs["sorted_table_grad_window_pair"] = stream_check(
-        "slab_table_grad", "sorted_table_grad_window_pair", key,
-        torch.stack([v0e, v1e, v0o, v1o]), T, at,
+        "slab_table_grad", "sorted_table_grad_window_pair",
+        *slab_stream(xn, g, hcfg), T, at,
         lambda: hashgrid_slab.hashgrid_table_grad_slab(xn, g, hcfg))
-    key, vals = hashgrid_brick._bwd_streams(xn, g, hcfg)
     recs["sorted_table_grad_brick"] = stream_check(
-        "brick_table_grad", "sorted_table_grad_brick", key,
-        torch.stack(vals), T, at,
+        "brick_table_grad", "sorted_table_grad_brick",
+        *brick_stream(xn, g, hcfg), T, at,
         lambda: hashgrid_brick.hashgrid_table_grad_brick(xn, g, hcfg))
     return recs
+
+
+def slab_stream(xn, g, hcfg) -> tuple:
+    """The slab backward's pair stream of xn and g as slab_table_grad
+    takes it: keys (L, n) and the planes (f0, f1 at k; f0, f1 at k + 1)."""
+    key, (v0e, v0o, v1e, v1o) = hashgrid_slab._bwd_streams(xn, g, hcfg)
+    return key, torch.stack([v0e, v1e, v0o, v1o])
+
+
+def brick_stream(xn, g, hcfg) -> tuple:
+    """The brick backward's stream of xn and g as brick_table_grad takes
+    it: keys (L, n) and 8 planes."""
+    key, vals = hashgrid_brick._bwd_streams(xn, g, hcfg)
+    return key, torch.stack(vals)
 
 
 def aggregation_inputs(n: int, L: int, dev) -> dict:
@@ -647,7 +659,8 @@ def aggregation_inputs(n: int, L: int, dev) -> dict:
     samples on one point with every third sample's gradient zero (groups
     with zero-gradient members); rays of 64 samples 2^-10 apart, cut to a
     length that is a multiple neither of the kernels' 64-sample tile nor
-    of 32."""
+    of 32 (nor of the slab stream's 128); and single samples, 1 and 33,
+    spread uniformly."""
     gen = torch.Generator(device=dev).manual_seed(9)
 
     def u(*shape):
@@ -671,27 +684,41 @@ def aggregation_inputs(n: int, L: int, dev) -> dict:
             torch.where((k % 3 == 0)[:, None], 0.0, g).contiguous()),
         f"rays, ragged length {m}": (ray[:m].contiguous(),
                                      g[:m].contiguous()),
+        **{f"uniform, n = {k}": (u(k, 3), g[:k].contiguous())
+           for k in (1, 33)},
     }
 
 
 def aggregation_checks(hcfg, n: int, dev) -> dict:
-    """brick3_table_grad and tcnn_table_grad (on the dedup path's
-    corner-major stream) against their plain twins, under the same
-    summation-order bound, on each stream of aggregation_inputs. Returns
-    {kernel row key: [check records]}."""
+    """brick3_table_grad and the stream kernels (tcnn on the dedup path's
+    corner-major stream, slab and brick on the streams their backwards
+    build) against their plain twins, under the same summation-order
+    bound, on each stream of aggregation_inputs. Returns {kernel row key:
+    [check records]}."""
     T = hcfg.table_size
-    recs = {"brick3_table_grad": [], "hashgrid_table_grad_window": []}
+
+    def stream_err(name, keys, vals):
+        err, tol, _ = stream_grad_err(name, keys, vals, T, stream_table_grad(
+            name, keys, vals, T))
+        return err, tol
+
+    errs = {
+        "brick3_table_grad": lambda x, g: brick3_grad_err(
+            x, g, hcfg, hashgrid_table_grad_brick3(x, g, hcfg)),
+        "hashgrid_table_grad_window": lambda x, g: stream_err(
+            "tcnn_table_grad", *tcnn_stream(*hashgrid_indices_cm(x, hcfg),
+                                            g)),
+        "sorted_table_grad_window_pair": lambda x, g: stream_err(
+            "slab_table_grad", *slab_stream(x, g, hcfg)),
+        "sorted_table_grad_brick": lambda x, g: stream_err(
+            "brick_table_grad", *brick_stream(x, g, hcfg)),
+    }
+    recs = {key: [] for key in errs}
     for case, (x, g) in aggregation_inputs(n, hcfg.n_levels, dev).items():
         at = f"aggregation stream: {case}"
-        err, tol = brick3_grad_err(x, g, hcfg,
-                                   hashgrid_table_grad_brick3(x, g, hcfg))
-        keys, vals = tcnn_stream(*hashgrid_indices_cm(x, hcfg), g)
-        s_err, s_tol, _ = stream_grad_err(
-            "tcnn_table_grad", keys, vals, T,
-            stream_table_grad("tcnn_table_grad", keys, vals, T))
-        torch.cuda.synchronize()
-        for key, e, t in (("brick3_table_grad", err, tol),
-                          ("hashgrid_table_grad_window", s_err, s_tol)):
+        for key, err_fn in errs.items():
+            e, t = err_fn(x, g)
+            torch.cuda.synchronize()
             check(bool((e <= t).all()), f"{key} kernel vs plain at {at}: "
                                         f"max|diff| {float(e.max())}")
             recs[key].append({
@@ -1423,7 +1450,8 @@ def main() -> None:
     for name, (sec, log) in built.items():
         print(f"[build] {name}: {sec:.1f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 print(f"[build]   {line.strip()}")
 
     cfg = MNGPConfig(scale=0.5, log2_T=19, grid_size=128, n_experts=2,

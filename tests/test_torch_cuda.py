@@ -14,7 +14,9 @@ from radnerf_tpu_torch import kernels
 from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
 from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
 from radnerf_tpu_torch.ops import hashgrid as thg
+from radnerf_tpu_torch.ops import hashgrid_brick as tbr
 from radnerf_tpu_torch.ops import hashgrid_brick3 as tb3
+from radnerf_tpu_torch.ops import hashgrid_slab as tsl
 from radnerf_tpu_torch.ops import hashgrid_window as thw
 from radnerf_tpu_torch.ops import marching as tm
 from radnerf_tpu_torch.ops import stream_table_grad as tsg
@@ -137,6 +139,13 @@ def test_stream_table_grad_kernel_equals_plain(dev, name):
         keys[:, :50] = T - 1
     vals = torch.randn((2 * len(tsg.OFFSETS[name]), L, n), generator=gen)
     vals[:, :, 100:300] = 0.0               # masked entries add nothing
+    # even and odd keys among the entries that add: slab's 16-byte (k
+    # even) and two 8-byte (k odd) paths, brick's two pair alignments
+    # ((k, k + 1) or (k + 11, k + 12) aligned); slab's T - 1 too
+    live = keys[vals.ne(0).any(0)]
+    assert (live % 2 == 0).any() and (live % 2 == 1).any()
+    if name == "slab_table_grad":
+        assert (live == T - 1).any()
     kd, vd = keys.to(dev), vals.to(dev)
     before = kernels.launch_counts[name]
     got = tsg.stream_table_grad(name, kd, vd, T)
@@ -155,8 +164,8 @@ def test_stream_table_grad_kernel_equals_plain(dev, name):
         tsg.stream_table_grad(name, kd, vd[:1].contiguous(), T)
 
 
-# streams made for the warp aggregation of brick3_table_grad and
-# tcnn_table_grad: every sample in one cell with positive gradients (the
+# streams made for the warp aggregation of brick3_table_grad and the
+# stream kernels: every sample in one cell with positive gradients (the
 # order bound then lies below the entry itself), samples spread uniformly,
 # runs of 8 on one point with every third gradient zero, rays of 64
 # samples 2^-10 apart at a ragged length; and single samples
@@ -206,12 +215,22 @@ def test_table_grad_kernels_on_aggregation_streams(dev, case, n):
     assert ((got - ref).abs().reshape(-1, 2) <= tol).all()
     if case == "one cell":
         assert count.max() == n
-    # tcnn on the dedup path's corner-major stream of the same samples
-    keys, vals = thw.tcnn_stream(*thg.hashgrid_indices_cm(x, cfg), g)
-    got = tsg.stream_table_grad("tcnn_table_grad", keys, vals, T)
-    ref = tsg.stream_table_grad_plain("tcnn_table_grad", keys, vals, T)
-    tol, _ = _order_tol("tcnn_table_grad", keys, vals, T)
-    assert ((got - ref).abs() <= tol).all()
+    # the stream kernels on the streams their backwards build from the
+    # same samples: tcnn on the dedup path's corner-major stream, slab on
+    # its pair stream (padded to 128 samples), brick on its xy-corner one
+    key, (v0e, v0o, v1e, v1o) = tsl._bwd_streams(x, g, cfg)
+    bkey, bvals = tbr._bwd_streams(x, g, cfg)
+    for name, (keys, vals) in (
+            ("tcnn_table_grad",
+             thw.tcnn_stream(*thg.hashgrid_indices_cm(x, cfg), g)),
+            ("slab_table_grad", (key, torch.stack([v0e, v1e, v0o, v1o]))),
+            ("brick_table_grad", (bkey, torch.stack(bvals)))):
+        before = kernels.launch_counts[name]
+        got = tsg.stream_table_grad(name, keys, vals, T)
+        assert kernels.launch_counts[name] == before + 1
+        ref = tsg.stream_table_grad_plain(name, keys, vals, T)
+        tol, _ = _order_tol(name, keys, vals, T)
+        assert ((got - ref).abs() <= tol).all(), name
 
 
 @pytest.mark.parametrize("impl,kernel", [

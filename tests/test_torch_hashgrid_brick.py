@@ -18,7 +18,8 @@ from radnerf_tpu_torch.ops import hashgrid as thg
 from radnerf_tpu_torch.ops import hashgrid_brick as tbr
 
 from .test_torch_hashgrid_tcnn import (
-    J_CFG, T_CFG, f16_pack_tol, f32_order_tol, inputs, table, term_stats,
+    COLLISION_CASES, J_CFG, T_CFG, collision_inputs, f16_pack_tol,
+    f32_order_tol, inputs, table, term_stats,
 )
 
 torch.set_num_threads(1)
@@ -120,6 +121,20 @@ def test_table_grad_matches_jax(pack_f16):
         tol = f32_order_tol(count, abs_sum)
     assert (np.abs(got - ref) <= tol).all()
     assert (count > 1).sum() > 500
+
+
+@pytest.mark.parametrize("case", COLLISION_CASES)
+def test_table_grad_on_collision_streams_matches_jax(case):
+    x, g = collision_inputs(case, 6)
+    ref = np.asarray(jax.jit(lambda a, b: jbr.hashgrid_table_grad_brick(
+        a, b, J_CFG, interpret=True, pack_f16=False))(x, g))
+    got = tbr.hashgrid_table_grad_brick(torch.from_numpy(x),
+                                        torch.from_numpy(g), T_CFG).numpy()
+    keys, vals = _stream(x, g, T_CFG)
+    count, abs_sum = term_stats("brick_table_grad", keys, vals,
+                                T_CFG.table_size)
+    assert (np.abs(got - ref) <= f32_order_tol(count, abs_sum)).all()
+    assert count.max() >= 8
 
 
 def test_sorted_table_grad_brick_takes_any_order():

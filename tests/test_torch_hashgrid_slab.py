@@ -20,8 +20,8 @@ from radnerf_tpu_torch.ops import hashgrid_dedup as tdd
 from radnerf_tpu_torch.ops import hashgrid_slab as tsl
 
 from .test_torch_hashgrid_tcnn import (
-    J_CFG, T_CFG, f16_pack_tol, f32_order_tol, inputs, ray_stream, table,
-    term_stats,
+    COLLISION_CASES, J_CFG, T_CFG, collision_inputs, f16_pack_tol,
+    f32_order_tol, inputs, ray_stream, table, term_stats,
 )
 
 torch.set_num_threads(1)
@@ -130,6 +130,20 @@ def test_table_grad_matches_jax(pack_f16):
         tol = f32_order_tol(count, abs_sum)
     assert (np.abs(got - ref) <= tol).all()
     assert (count > 1).sum() > 500
+
+
+@pytest.mark.parametrize("case", COLLISION_CASES)
+def test_table_grad_on_collision_streams_matches_jax(case):
+    x, g = collision_inputs(case, 6)           # padded to 1024 on both
+    ref = np.asarray(jax.jit(lambda a, b: jsl.hashgrid_table_grad_slab(
+        a, b, J_CFG, interpret=True, pack_f16=False))(x, g))
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    got = tsl.hashgrid_table_grad_slab(tx, tg, T_CFG).numpy()
+    keys, vals = _pair_stream(*tsl._bwd_streams(tx, tg, T_CFG))
+    count, abs_sum = term_stats("slab_table_grad", keys, vals,
+                                T_CFG.table_size)
+    assert (np.abs(got - ref) <= f32_order_tol(count, abs_sum)).all()
+    assert count.max() >= 8
 
 
 def boundary_point(tc):

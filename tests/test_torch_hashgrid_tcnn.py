@@ -61,6 +61,35 @@ def inputs(n_levels, n=2048, seed=0):
     return x, g
 
 
+COLLISION_CASES = ("one cell, positive gradients",
+                   "runs of 8, zero-gradient members",
+                   "rays of 64, ragged length")
+
+
+def collision_inputs(case, n_levels, n=1000, seed=11):
+    """Positions and an output gradient whose table terms collide (the
+    streams the card's warp aggregation is made for): every sample on one
+    point with positive gradients; runs of 8 samples on one point with
+    every third gradient zero; rays of 64 samples 2^-10 apart, cut to a
+    length n that is a multiple of neither 64 nor 128."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(n, 2 * n_levels)).astype(np.float32)
+    k = np.arange(n)
+    if case == COLLISION_CASES[0]:
+        x = np.repeat(rng.uniform(0, 1, (1, 3)), n, axis=0)
+        g = np.abs(g)
+    elif case == COLLISION_CASES[1]:
+        x = rng.uniform(0, 1, (-(-n // 8), 3))[k // 8]
+        g[k % 3 == 0] = 0.0
+    else:
+        d = rng.normal(size=(-(-n // 64), 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o = 0.25 + 0.5 * rng.uniform(0, 1, d.shape)
+        x = np.clip(o[k // 64] + d[k // 64] * (k % 64)[:, None] * 2.0**-10,
+                    0.0, 1.0)
+    return x.astype(np.float32), g
+
+
 def ray_stream(n_rays=8, k=256, seed=2):
     """dt_min-lattice ray-ordered samples (the dedup merge's premise) on a
     2^-16 lattice: with the integer level scales of CFG_KW, x * scale is
