@@ -12,8 +12,9 @@ CPU fallback):
      shapes of the render's first loop iteration on a 4096-ray chunk: the
      candidate occupancy on 4096 x 512 candidates (must be equal), the
      brick3 encode on the iteration's 98,304 marched samples at L=16,
-     T=2^19 (within one bf16 ulp); median times of kernel, plain version
-     and library call;
+     T=2^19 (within one bf16 ulp, reading the packed table and reading the
+     f32 table); median times of kernel, plain version and library call,
+     and the device time of the training step's call (the f32 table);
   4. the slice at full width: MNGP zoo=2 (scale 0.5, T=2^19, G=128, bf16,
      brick3) from torch.Generator seed 0, expert 0 occupying a solid
      0.3-radius sphere and expert 1 its +x half, renders a 400x400 pinhole
@@ -401,38 +402,108 @@ def render_sphere(store: dict, cfg: MNGPConfig, chunk: int = 4096):
     return torch.cat(out).reshape(n_img, n_pix, 3)
 
 
+def render_scene(dev) -> dict:
+    """Phase 4's model: MNGP zoo=2 at full width (scale 0.5, T=2^19,
+    G=128, bf16, brick3) from torch.Generator seed 0, expert 0 occupying a
+    solid 0.3-radius sphere and expert 1 its +x half, and the 400x400
+    camera."""
+    cfg = MNGPConfig(scale=0.5, log2_T=19, grid_size=128, n_experts=2,
+                     compute_dtype="bfloat16", hash_impl="brick3")
+    gen = torch.Generator().manual_seed(0)
+    params = init_mngp(gen, cfg, device=dev)
+    gate = init_ray_gate(gen, cfg.n_experts, device=dev)
+    state = {**init_mngp_state(cfg, device=dev),
+             "occ": occupancy(cfg, dev)}
+    directions, pose = camera(SIDE, dev)
+    return {"cfg": cfg, "rcfg": RenderConfig(), "params": params,
+            "gate": gate, "state": state, "directions": directions,
+            "pose": pose}
+
+
+def render_iteration(scene: dict) -> dict:
+    """The first loop iteration of the render's middle chunk (from ray
+    c0): its lattice candidates (xyz, dt) against the union grid, and its
+    marched samples xn in [0, 1]^3, n_valid of them valid."""
+    cfg, rcfg, state = scene["cfg"], scene["rcfg"], scene["state"]
+    mcfg = rcfg.march(cfg)
+    dev = scene["directions"].device
+    c0 = (scene["directions"].shape[0] // CHUNK // 2) * CHUNK
+    rays_o, rays_d = get_rays(scene["directions"][c0:c0 + CHUNK],
+                              scene["pose"])
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    center, half = scene_center_half(state)
+    t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
+    occ_union = state["occ"].any(dim=0).contiguous()
+    k = torch.arange(rcfg.test_k_block, device=dev, dtype=torch.int32)
+    t = sample_lattice(t1[:, None], k[None, :], mcfg)
+    dt = calc_dt(t, mcfg)
+    xyz = fma32(t[..., None], rays_d[:, None, :], rays_o[:, None, :])
+    m = march_rays_test_flat(
+        rays_o, rays_d, t1, t2, occ_union, mcfg, t1 >= 0,
+        k_block=rcfg.test_k_block, cap_per_ray=rcfg.test_block_samples,
+        budget_per_ray=rcfg.test_budget_per_ray,
+    )
+    rid = m["ray_id"].long()
+    xs = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
+    xn = ((xs - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
+          ).clamp(0.0, 1.0).contiguous()
+    return {"c0": c0, "xyz": xyz, "dt": dt, "occ_union": occ_union,
+            "mcfg": mcfg, "xn": xn, "n_valid": int(m["total"])}
+
+
 def encode_check(table, packed, xn, hcfg, at: str, n_valid: int,
                  plain_reps: int = 50) -> dict:
     """Kernel 1 against its plain version on positions xn (within one
-    bf16 ulp), with the times of both and the bound."""
-    enc_k = hashgrid_encode_brick3_fwd_impl(table, xn, hcfg, packed=packed)
+    bf16 ulp), reading the packed words and reading the f32 table, with
+    the times of both, the plain version's and the bounds. `ms`,
+    `device_ms` and `bound_ms` are those of the packed read (`form`: the
+    render's and the grid update's call, which pack once beforehand,
+    `pack_device_ms`); `train_path_device_ms` and `train_path_bound_ms`
+    those of the call as the training step makes it, on the f32 table
+    with no pack."""
+    enc_a = hashgrid_encode_brick3_fwd_impl(table, xn, hcfg, packed=packed)
+    enc_b = hashgrid_encode_brick3_fwd_impl(table, xn, hcfg)
     enc_p = _encode_plain(packed, xn, hcfg)
     torch.cuda.synchronize()
-    ulps = bf16_ulps(enc_k, enc_p)
-    check(ulps <= 1.0, f"brick3_encode_fwd kernel vs plain at {at}: {ulps} "
-                       "ulp")
+    check(torch.equal(_encode_plain(table, xn, hcfg), enc_p),
+          f"brick3 plain encode of the f32 table != of the packed words at "
+          f"{at}")
+    ulps = {form: bf16_ulps(enc, enc_p)
+            for form, enc in (("packed", enc_a), ("f32", enc_b))}
+    for form, u in ulps.items():
+        check(u <= 1.0, f"brick3_encode_fwd kernel ({form} table) vs plain "
+                        f"at {at}: {u} ulp")
     n, L = xn.shape[0], hcfg.n_levels
     rec = {
-        "at": at, "check": "<= 1 bf16 ulp",
-        "max_abs_err": float((enc_k.float() - enc_p.float()).abs().max()),
-        "max_ulp": ulps,
-        "exact_share": float((enc_k == enc_p).float().mean()),
+        "at": at, "check": "<= 1 bf16 ulp (packed and f32 table)",
+        "form": "packed bf16x2 words (render, grid update)",
+        "max_abs_err": max(float((enc.float() - enc_p.float()).abs().max())
+                           for enc in (enc_a, enc_b)),
+        "max_ulp": max(ulps.values()),
+        "exact_share": float((enc_a == enc_p).float().mean()),
+        "exact_share_f32": float((enc_b == enc_p).float().mean()),
         "shape": f"{n} samples ({n_valid} valid), L={L}, "
                  f"T=2^{hcfg.log2_table_size}",
         "ms": median_ms(lambda: hashgrid_encode_brick3_fwd_impl(
             table, xn, hcfg, packed=packed)),
         "device_ms": graph_ms(lambda: hashgrid_encode_brick3_fwd_impl(
             table, xn, hcfg, packed=packed)),
+        "train_path_device_ms": graph_ms(
+            lambda: hashgrid_encode_brick3_fwd_impl(table, xn, hcfg)),
+        "pack_device_ms": graph_ms(lambda: pack_brick3_table(table)),
         "plain_ms": median_ms(lambda: _encode_plain(packed, xn, hcfg),
                               reps=plain_reps, warmup=min(5, plain_reps)),
         "library_ms": None, "library_device_ms": None,
         "library_call": "none: no PyTorch call computes a hash-grid encode",
     }
-    # x in, 2 bf16 out per (sample, level), the distinct table words read;
+    # x in, 2 bf16 out per (sample, level), the distinct table entries
+    # read: 4-byte words packed, 8-byte f32 pairs on the training path;
     # ~60 f32 operations per (sample, level) (3 fma-floor-sub, 8 weights,
     # 16 multiply-adds)
-    rec.update(bound(n * 12 + n * L * 4 + brick3_words_needed(xn, hcfg) * 4,
-                     n * L * 60))
+    io, ops = n * 12 + n * L * 4, n * L * 60
+    entries = brick3_words_needed(xn, hcfg)
+    rec.update(bound(io + entries * 4, ops))
+    rec["train_path_bound_ms"] = bound(io + entries * 8, ops)["bound_ms"]
     return rec
 
 
@@ -749,8 +820,10 @@ def forward_times(table, xn, hcfg) -> dict:
             table, xn, hcfg, torch.bfloat16, addr="slab"),
         "brick": lambda: hashgrid_brick.hashgrid_encode_brick_fwd_impl(
             table, xn, hcfg),
-        "brick3 (kernel 1)": lambda: hashgrid_encode_brick3_fwd_impl(
+        "brick3 (kernel 1, packed)": lambda: hashgrid_encode_brick3_fwd_impl(
             table, xn, hcfg, packed=packed),
+        "brick3 (kernel 1, f32 table)":
+            lambda: hashgrid_encode_brick3_fwd_impl(table, xn, hcfg),
     }
     out = {k: median_ms(f, reps=10, warmup=2) for k, f in fwds.items()}
     print(f"[forwards] {xn.shape[0]} samples, L={hcfg.n_levels}: "
@@ -767,6 +840,12 @@ def print_check(name: str, rec: dict) -> None:
         lib = rec["library_device_ms"]
         extra += (f"; on the device (CUDA graph) {rec['device_ms']:.4f} ms, "
                   f"library {'none' if lib is None else f'{lib:.4f} ms'}")
+    if "exact_share" in rec:
+        extra += (f", exact share {rec['exact_share']:.6f} packed / "
+                  f"{rec['exact_share_f32']:.6f} f32; train path (f32 "
+                  f"table) {rec['train_path_device_ms']:.4f} ms on the "
+                  f"device, bound {rec['train_path_bound_ms']:.4f} ms; "
+                  f"the pack alone {rec['pack_device_ms']:.4f} ms")
     if "contract_ms" in rec:
         extra += (f", contract {rec['contract']} in "
                   f"{rec['contract_ms']:.4f} ms")
@@ -1454,46 +1533,25 @@ def main() -> None:
                     or "spill" in line):
                 print(f"[build]   {line.strip()}")
 
-    cfg = MNGPConfig(scale=0.5, log2_T=19, grid_size=128, n_experts=2,
-                     compute_dtype="bfloat16", hash_impl="brick3")
-    rcfg = RenderConfig()
-    mcfg = rcfg.march(cfg)
+    scene = render_scene(dev)
+    cfg, rcfg, params, gate, state, directions, pose = (
+        scene[k] for k in ("cfg", "rcfg", "params", "gate", "state",
+                           "directions", "pose"))
     hcfg = cfg.hash
-    gen = torch.Generator().manual_seed(0)
-    params = init_mngp(gen, cfg, device=dev)
-    gate = init_ray_gate(gen, cfg.n_experts, device=dev)
-    state = {**init_mngp_state(cfg, device=dev),
-             "occ": occupancy(cfg, dev)}
-    directions, pose = camera(SIDE, dev)
     n_pix = directions.shape[0]
 
     # 3. kernels vs plain, on the first iteration of the middle chunk
-    c0 = (n_pix // CHUNK // 2) * CHUNK
-    rays_o, rays_d = get_rays(directions[c0:c0 + CHUNK], pose)
-    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
-    center, half = scene_center_half(state)
-    t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
-    occ_union = state["occ"].any(dim=0).contiguous()
-    k = torch.arange(rcfg.test_k_block, device=dev, dtype=torch.int32)
-    t = sample_lattice(t1[:, None], k[None, :], mcfg)
-    dt = calc_dt(t, mcfg)
-    xyz = fma32(t[..., None], rays_d[:, None, :], rays_o[:, None, :])
-
+    it = render_iteration(scene)
+    c0 = it["c0"]
     at = "render iteration 0"
-    render_checks = {"occ_lookup": occ_check(xyz, dt, occ_union, mcfg, at)}
-
-    m = march_rays_test_flat(
-        rays_o, rays_d, t1, t2, occ_union, mcfg, t1 >= 0,
-        k_block=rcfg.test_k_block, cap_per_ray=rcfg.test_block_samples,
-        budget_per_ray=rcfg.test_budget_per_ray,
-    )
-    rid = m["ray_id"].long()
-    xs = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
-    xn = ((xs - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
-          ).clamp(0.0, 1.0).contiguous()
     table = params["hash_table"]
-    render_checks["brick3_encode_fwd"] = encode_check(
-        table, pack_brick3_table(table), xn, hcfg, at, int(m["total"]))
+    render_checks = {
+        "occ_lookup": occ_check(it["xyz"], it["dt"], it["occ_union"],
+                                it["mcfg"], at),
+        "brick3_encode_fwd": encode_check(
+            table, pack_brick3_table(table), it["xn"], hcfg, at,
+            it["n_valid"]),
+    }
     for name, rec in render_checks.items():
         print_check(name, rec)
 
@@ -1667,10 +1725,12 @@ def main() -> None:
             "launches_by_path": {p: c[name]
                                  for p, c in phase_launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in runs),
-            **{k: main_rec[k] for k in ("shape", "ms", "device_ms",
+            **{k: main_rec[k] for k in ("shape", "form", "ms", "device_ms",
                                         "plain_ms", "library_ms",
                                         "library_device_ms", "bound_ms",
-                                        "bound_by")
+                                        "bound_by", "train_path_device_ms",
+                                        "train_path_bound_ms",
+                                        "pack_device_ms")
                if k in main_rec},
             "checks": runs, "ok": True,
         })

@@ -7,8 +7,9 @@ examples/proto_pallas_gather.py).
   pallas gather                  csrc/proto_gather.cu's pallas_gather:
                                  one thread per row, one float2 load
   pallas scatter-add             its pallas_scatter: one thread per
-                                 update, f32 atomics (the TPU kernel's
-                                 serial VMEM loop, in no fixed order)
+                                 update, one 8-byte f32x2 reduction each
+                                 (the TPU kernel's serial VMEM loop, in
+                                 no fixed order)
 
 Each kernel's result is checked against its plain twin ("correct:"): the
 gather bit for bit, the scatter within its f32 order bound.
@@ -30,17 +31,31 @@ F = 2            # the kernels move a row as one float2
 M = 1 << 20      # 1M gathers
 
 
+def _rows_of(idx: torch.Tensor, n_rows: int):
+    """idx as int64 rows, an index in [-n_rows, 0) counted from the end of
+    the table (as jnp.take and .at[].add count it), and the mask of the
+    rows inside the table."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n_rows, idx)
+    return idx, (idx >= 0) & (idx < n_rows)
+
+
 def pallas_gather_plain(table: torch.Tensor,
                         idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of pallas_gather."""
-    return table[idx.long()]
+    """Plain PyTorch twin of pallas_gather: a row outside the table
+    gathers NaN, as the kernel does."""
+    rows, inside = _rows_of(idx, table.shape[0])
+    got = table[torch.where(inside, rows, 0)]
+    return torch.where(inside[:, None], got, float("nan"))
 
 
 def pallas_scatter_plain(idx: torch.Tensor, vals: torch.Tensor,
                          n_rows: int) -> torch.Tensor:
-    """Plain PyTorch twin of pallas_scatter."""
+    """Plain PyTorch twin of pallas_scatter: an update to a row outside
+    the table is dropped, as the kernel drops it."""
+    rows, inside = _rows_of(idx, n_rows)
     out = torch.zeros((n_rows, F), dtype=torch.float32, device=vals.device)
-    return out.index_put_((idx.long(),), vals, accumulate=True)
+    return out.index_put_((rows[inside],), vals[inside], accumulate=True)
 
 
 def _check(idx: torch.Tensor, rows: torch.Tensor, what: str) -> None:
@@ -59,8 +74,9 @@ def _check(idx: torch.Tensor, rows: torch.Tensor, what: str) -> None:
 
 
 def pallas_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx]: table (T, 2) f32, idx (M,) int32 in [0, T) -> (M, 2)
-    f32. The CUDA kernel on CUDA tensors, its plain twin on CPU tensors."""
+    """table[idx]: table (T, 2) f32, idx (M,) int32 -> (M, 2) f32; an
+    index in [-T, 0) counts from the end, NaN for one outside [-T, T).
+    The CUDA kernel on CUDA tensors, its plain twin on CPU tensors."""
     _check(idx, table, "table")
     if not idx.is_cuda:
         return pallas_gather_plain(table, idx)
@@ -75,10 +91,12 @@ def pallas_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def pallas_scatter(idx: torch.Tensor, vals: torch.Tensor,
                    n_rows: int) -> torch.Tensor:
-    """zeros(n_rows, 2) with vals[i] added to row idx[i]: idx (M,) int32 in
-    [0, n_rows), vals (M, 2) f32 -> (n_rows, 2) f32. The CUDA kernel on
-    CUDA tensors (atomics: the order of the sums varies), its plain twin
-    on CPU tensors."""
+    """zeros(n_rows, 2) with vals[i] added to row idx[i]: idx (M,) int32,
+    vals (M, 2) f32 -> (n_rows, 2) f32; an index in [-n_rows, 0) counts
+    from the end, one outside [-n_rows, n_rows) is dropped. idx and vals
+    may be views at any element offset. The CUDA kernel on CUDA tensors
+    (atomics: the order of the sums varies), its plain twin on CPU
+    tensors."""
     _check(idx, vals, "vals")
     if vals.shape[0] != idx.shape[0]:
         raise ValueError(f"vals must have {idx.shape[0]} rows, got "
@@ -96,12 +114,15 @@ def pallas_scatter(idx: torch.Tensor, vals: torch.Tensor,
 def scatter_order_bound(idx: torch.Tensor, vals: torch.Tensor,
                         n_rows: int) -> torch.Tensor:
     """(n_rows, 2) bound on |a - b| between two f32 sums of each row's n
-    terms in different orders: 2 (n - 1) 2^-24 sum|terms|."""
+    terms in different orders: 2 (n - 1) 2^-24 sum|terms| (updates outside
+    the table dropped)."""
     dev = vals.device
+    rows, inside = _rows_of(idx, n_rows)
+    idx, vals = rows[inside], vals[inside]
     abs_sum = torch.zeros((n_rows, F), device=dev).index_add_(
-        0, idx.long(), vals.abs())
+        0, idx, vals.abs())
     count = torch.zeros((n_rows, 1), device=dev).index_add_(
-        0, idx.long(), torch.ones((idx.shape[0], 1), device=dev))
+        0, idx, torch.ones((idx.shape[0], 1), device=dev))
     return 2 * (count - 1).clamp_min(0) * 2.0**-24 * abs_sum
 
 
@@ -148,7 +169,7 @@ def run(n_rows: int = T, m: int = M, device="cuda") -> dict:
     out["gather_correct"] = torch.equal(got, pallas_gather_plain(table, idx))
     print("  correct:", out["gather_correct"], flush=True)
 
-    got = bench("pallas scatter-add (CUDA, f32 atomics)",
+    got = bench("pallas scatter-add (CUDA, f32x2 reductions)",
                 lambda: pallas_scatter(idx, vals, n_rows), iters=3)
     err = (got - pallas_scatter_plain(idx, vals, n_rows)).abs()
     out["scatter_correct"] = bool(

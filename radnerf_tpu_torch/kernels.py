@@ -46,11 +46,11 @@ _P, _I64, _I32, _F32 = (
 
 # kernel name -> (source in csrc/, C entry point argtypes)
 KERNELS = {
-    # (packed, x, out, n, n_levels, rows_per_level, scales, nps, dense,
-    #  stream)
+    # (table, table_is_f32, x, out, n, n_levels, rows_per_level, scales,
+    #  nps, dense, stream)
     "brick3_encode_fwd": (
         "brick3_encode_fwd.cu",
-        (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P),
+        (_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P),
     ),
     # (x, g, out, n, n_levels, rows_per_level, scales, nps, dense, stream)
     "brick3_table_grad": (

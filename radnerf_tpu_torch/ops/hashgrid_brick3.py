@@ -16,10 +16,14 @@ decodes the same in the other.
 
 `hashgrid_encode_brick3_fwd_impl` launches the CUDA kernel
 `csrc/brick3_encode_fwd.cu` on CUDA tensors and runs `_encode_plain`, its
-plain PyTorch twin, on CPU tensors. `hashgrid_table_grad_brick3` (the
-backward: dL/dtable) launches `csrc/brick3_table_grad.cu` on CUDA tensors
-and runs `_table_grad_plain` on CPU tensors. `hashgrid_encode_brick3` is
-the differentiable encode: its backward is the table gradient.
+plain PyTorch twin, on CPU tensors. Both read either the packed words or
+the (L, T, 2) f32 table itself, rounding each corner value to bf16 as the
+pack would: the training step encodes once per table and reads it as it
+is, while the render and the grid update pack once for many encodes.
+`hashgrid_table_grad_brick3` (the backward: dL/dtable) launches
+`csrc/brick3_table_grad.cu` on CUDA tensors and runs `_table_grad_plain`
+on CPU tensors. `hashgrid_encode_brick3` is the differentiable encode:
+its backward is the table gradient.
 
 The backward is the exact f32 gradient (the reference's `exact=True`
 path). The reference's default backward quantizes the fractions to 10
@@ -30,6 +34,7 @@ none of that exists here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -171,15 +176,25 @@ def hashgrid_encode_brick3_ref(
     return _cm_out(torch.stack(out0), torch.stack(out1))
 
 
+def _corner_values(src: torch.Tensor, e: torch.Tensor):
+    """(feature 0, feature 1) of flat table entries e as bf16 tensors, from
+    packed words (pack_brick3_table) or from the (L, T, 2) f32 table (each
+    value rounded to bf16, as the pack rounds it)."""
+    if src.dtype == torch.int32:
+        return _unpack_bf16(src.reshape(-1)[e])
+    v = src.reshape(-1, 2)[e].to(torch.bfloat16)
+    return v[..., 0], v[..., 1]
+
+
 def _encode_plain(
-    packed: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig
+    src: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig
 ) -> torch.Tensor:
     """Plain PyTorch twin of the CUDA kernel: per (sample, level), read the
-    8 corner words of the sample's row and sum weight x bf16 value in
-    float32 (corner order, separate roundings), then round to bf16."""
+    8 corners of the sample's row from `src` (packed words or the f32
+    table) and sum weight x bf16 value in float32 (corner order, separate
+    roundings), then round to bf16."""
     L = cfg.n_levels
     R = cfg.table_size // LANES
-    words = packed.reshape(-1)
     xi, yi, zi, frac = _geometry(x, cfg, list(range(L)))
     out0, out1 = [], []
     for a in brick3_addrs(cfg):
@@ -190,7 +205,7 @@ def _encode_plain(
         a0 = torch.zeros_like(frac[a.level, 0])
         a1 = torch.zeros_like(a0)
         for wc, off in zip(_corner_weights(frac[a.level]), _OFFS3):
-            lo, hi = _unpack_bf16(words[base + off])
+            lo, hi = _corner_values(src, base + off)
             a0 = a0 + wc * lo.to(torch.float32)
             a1 = a1 + wc * hi.to(torch.float32)
         out0.append(a0)
@@ -198,41 +213,59 @@ def _encode_plain(
     return _cm_out(torch.stack(out0), torch.stack(out1)).to(torch.bfloat16)
 
 
-def _level_params(cfg: HashGridConfig):
+@dataclasses.dataclass(frozen=True)
+class _LevelParams:
+    """The kernels' per-level arrays (read-only) and their addresses, the
+    ctypes arguments of a launch."""
+    scales: np.ndarray     # (L,) f32
+    nps: np.ndarray        # (L,) i32, patches per axis
+    dense: np.ndarray      # (L,) i32, 1 for a dense level
+    ptrs: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def _level_params(cfg: HashGridConfig) -> _LevelParams:
+    """Built once per config (a frozen dataclass), so a launch builds no
+    arrays; they live as long as the cache."""
     addrs = brick3_addrs(cfg)
-    scales = np.ascontiguousarray(cfg.level_scales(), np.float32)
-    nps = np.asarray([a.np_ for a in addrs], np.int32)
-    dense = np.asarray([int(a.dense) for a in addrs], np.int32)
-    return scales, nps, dense
+    arrays = (
+        np.ascontiguousarray(cfg.level_scales(), np.float32),
+        np.asarray([a.np_ for a in addrs], np.int32),
+        np.asarray([int(a.dense) for a in addrs], np.int32),
+    )
+    for a in arrays:
+        a.flags.writeable = False
+    return _LevelParams(*arrays, tuple(a.ctypes.data for a in arrays))
 
 
 def _encode_cuda(
-    packed: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig
+    src: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig
 ) -> torch.Tensor:
     L = cfg.n_levels
     R = cfg.table_size // LANES
-    if packed.dtype != torch.int32 or packed.shape != (L * R, LANES):
-        raise ValueError(f"packed table must be ({L * R}, {LANES}) int32, "
-                         f"got {tuple(packed.shape)} {packed.dtype}")
+    f32 = src.dtype == torch.float32
+    want = ((L, R * LANES, 2), torch.float32) if f32 else (
+        (L * R, LANES), torch.int32)
+    if (tuple(src.shape), src.dtype) != want:
+        raise ValueError(f"the table must be the (L, T, 2) float32 table or "
+                         f"its ({L * R}, {LANES}) int32 packing, got "
+                         f"{tuple(src.shape)} {src.dtype}")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
         raise ValueError(f"x must be (N, 3) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if not (packed.is_cuda and x.device == packed.device):
-        raise ValueError("packed table and x must be on the same CUDA "
-                         "device")
-    if not (packed.is_contiguous() and x.is_contiguous()):
-        raise ValueError("packed table and x must be contiguous")
+    if not (src.is_cuda and x.device == src.device):
+        raise ValueError("the table and x must be on the same CUDA device")
+    if not (src.is_contiguous() and x.is_contiguous()):
+        raise ValueError("the table and x must be contiguous")
     if not 1 <= L <= 32:
         raise ValueError("the kernel takes 1 to 32 levels")
     N = x.shape[0]
     out = torch.empty((N, 2 * L), dtype=torch.bfloat16, device=x.device)
-    scales, nps, dense = _level_params(cfg)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         kernels.launch(
-            "brick3_encode_fwd", packed.data_ptr(), x.data_ptr(),
-            out.data_ptr(), N, L, R, scales.ctypes.data, nps.ctypes.data,
-            dense.ctypes.data, stream,
+            "brick3_encode_fwd", src.data_ptr(), int(f32), x.data_ptr(),
+            out.data_ptr(), N, L, R, *_level_params(cfg).ptrs, stream,
         )
     return out
 
@@ -249,17 +282,17 @@ def hashgrid_encode_brick3_fwd_impl(
 
     `fw_mode` 'runs' and 'plain' are the reference's two TPU strategies
     for the same function (run-dedup vs one gather per row); on Hopper one
-    kernel serves both. `packed` (from pack_brick3_table) skips packing
-    the table again when the caller encodes many batches."""
+    kernel serves both. Without `packed` the kernel reads the f32 table as
+    it is; `packed` (from pack_brick3_table, same result) is read instead
+    when the caller packed once for many batches."""
     if fw_mode not in ("runs", "plain"):
         raise ValueError(f"unknown fw_mode {fw_mode!r}")
-    if packed is None:
-        packed = pack_brick3_table(table)
+    src = table if packed is None else packed
     if x.is_cuda:
-        return _encode_cuda(packed, x, cfg)
+        return _encode_cuda(src, x, cfg)
     if x.device.type != "cpu":
         raise ValueError(f"no brick3 encode for device {x.device}")
-    return _encode_plain(packed, x, cfg)
+    return _encode_plain(src, x, cfg)
 
 
 def _corner_terms(x: torch.Tensor, cfg: HashGridConfig):
@@ -312,13 +345,12 @@ def _table_grad_cuda(x: torch.Tensor, g: torch.Tensor,
     if not 1 <= L <= 32:
         raise ValueError("the kernel takes 1 to 32 levels")
     out = torch.zeros((L, T, 2), dtype=torch.float32, device=x.device)
-    scales, nps, dense = _level_params(cfg)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         kernels.launch(
             "brick3_table_grad", x.data_ptr(), g.data_ptr(),
-            out.data_ptr(), x.shape[0], L, R, scales.ctypes.data,
-            nps.ctypes.data, dense.ctypes.data, stream,
+            out.data_ptr(), x.shape[0], L, R, *_level_params(cfg).ptrs,
+            stream,
         )
     return out
 

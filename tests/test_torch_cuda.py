@@ -57,10 +57,88 @@ def test_brick3_kernel_equals_plain(dev):
     ref = tb3._encode_plain(packed, x, cfg)
     assert got.dtype == torch.bfloat16 and got.shape == (3001, 12)
     assert torch.equal(got, ref)
+    assert torch.equal(
+        tb3.hashgrid_encode_brick3_fwd_impl(table, x, cfg, packed=packed),
+        ref)
     with pytest.raises(ValueError):
         tb3.hashgrid_encode_brick3_fwd_impl(table, x[:, :2].contiguous(),
                                             cfg)
+    with pytest.raises(ValueError):
+        tb3.hashgrid_encode_brick3_fwd_impl(table.half(), x, cfg)
     assert np.isfinite(got.float().cpu().numpy()).all()
+
+
+# (levels, config): one hashed level; 16 dense and hashed; 32, the
+# kernel's most (its shared-memory tile and level parameters)
+ENCODE_LEVELS = {
+    1: dict(n_levels=1, log2_table_size=12, base_resolution=16,
+            per_level_scale=2.0),
+    16: dict(n_levels=16, log2_table_size=13, base_resolution=4,
+             per_level_scale=1.3),
+    32: dict(n_levels=32, log2_table_size=12, base_resolution=4,
+             per_level_scale=1.15),
+}
+
+
+def _ray_samples(n: int, gen) -> torch.Tensor:
+    """n samples in ray order: rays of 96 samples at a 1/512 step."""
+    n_rays = -(-n // 96)
+    o = torch.rand((n_rays, 3), generator=gen)
+    d = torch.nn.functional.normalize(torch.randn((n_rays, 3),
+                                                  generator=gen), dim=1)
+    t = torch.arange(96) / 512.0
+    x = (o[:, None] + t[None, :, None] * d[:, None]).reshape(-1, 3)[:n]
+    return x.clamp(0.0, 1.0).contiguous()
+
+
+@pytest.mark.parametrize("order", ["rays", "shuffled"])
+@pytest.mark.parametrize("n", [0, 1, 64 * 40 + 37])
+@pytest.mark.parametrize("levels", [1, 16, 32])
+def test_brick3_encode_tiles_equal_plain(dev, levels, n, order):
+    """Both table forms, bit-equal to the plain twin: an empty and a
+    one-sample call, a ragged last tile, 1 to 32 levels, a ray-ordered
+    stream (a warp's samples share cells) and the same samples
+    shuffled."""
+    cfg = thg.HashGridConfig(**ENCODE_LEVELS[levels])
+    assert {a.dense for a in tb3.brick3_addrs(cfg)} == (
+        {False} if levels == 1 else {True, False})
+    gen = torch.Generator().manual_seed(levels * 7 + n)
+    table = (torch.rand((levels, cfg.table_size, 2), generator=gen) * 2
+             - 1).to(dev)
+    x = _ray_samples(n, gen)
+    if order == "shuffled":
+        x = x[torch.randperm(n, generator=gen)]
+    x = x.to(dev)
+    packed = tb3.pack_brick3_table(table)
+    ref = tb3._encode_plain(packed, x, cfg)
+    before = kernels.launch_counts["brick3_encode_fwd"]
+    for got in (tb3.hashgrid_encode_brick3_fwd_impl(table, x, cfg),
+                tb3.hashgrid_encode_brick3_fwd_impl(table, x, cfg,
+                                                    packed=packed)):
+        assert got.shape == (n, 2 * levels) and torch.equal(got, ref)
+    assert kernels.launch_counts["brick3_encode_fwd"] == before + 2
+
+
+def test_brick3_encode_f32_table_rounds_ties_to_even(dev):
+    """Every table value halfway between two bf16 values: the kernel's
+    read of the f32 table rounds each to even, as the pack does."""
+    cfg = thg.HashGridConfig(**ENCODE_LEVELS[16])
+    gen = torch.Generator().manual_seed(11)
+    bf = (torch.rand((16, cfg.table_size, 2), generator=gen) * 2 - 1).to(
+        torch.bfloat16)
+    bits = (bf.view(torch.int16).to(torch.int32) << 16) | 0x8000
+    table = bits.view(torch.float32)
+    packed = tb3.pack_brick3_table(table)
+    lo, hi = tb3._unpack_bf16(packed.reshape(-1))
+    rounded = torch.stack([lo, hi], -1).reshape(table.shape)
+    up = rounded.float().abs() > table.abs()
+    assert up.any() and (~up).any()      # ties went both ways (to even)
+    x = _ray_samples(5000, gen)
+    ref = tb3._encode_plain(packed, x, cfg)
+    table, x = table.to(dev), x.to(dev)
+    assert torch.equal(tb3.hashgrid_encode_brick3_fwd_impl(table, x, cfg),
+                       ref.to(dev))
+    assert torch.equal(tb3._encode_plain(table, x, cfg), ref.to(dev))
 
 
 def test_brick3_table_grad_kernel_equals_plain(dev):
@@ -300,6 +378,78 @@ def test_proto_gather_kernels_equal_plain(dev):
     assert ((got.cpu() - cpu).abs() <= bound.cpu()).all()
     with pytest.raises(ValueError):
         tpg.pallas_scatter(x["idx"], x["vals"].double(), n_rows)
+
+
+def _scatter_inputs(case: str, m: int, n_rows: int, dev):
+    """idx (m,) int32 and vals (m, 2) f32 of one case; views at an offset
+    for "offset rows" (vals 8- but not 16-byte aligned) and "odd floats"
+    (idx and vals at an odd element offset: 4-byte aligned only)."""
+    gen = torch.Generator().manual_seed(len(case))
+    idx = torch.randint(0, n_rows, (m + 1,), generator=gen,
+                        dtype=torch.int32)
+    vals = torch.randn((m + 1, 2), generator=gen)
+    if case == "outside":
+        idx[::7] = torch.tensor([-1, n_rows, n_rows + 5, -(1 << 30),
+                                 -n_rows, -n_rows - 1],
+                                dtype=torch.int32).repeat(m // 7 + 1)[
+                                    :idx[::7].shape[0]]
+    if case == "one row":
+        idx[:] = 5
+    idx, vals = idx.to(dev), vals.to(dev)
+    if case == "offset rows":
+        return idx[1:], vals[1:]
+    if case == "odd floats":
+        return idx[1:], vals.reshape(-1)[1:2 * m + 1].view(m, 2)
+    return idx[:m], vals[:m]
+
+
+def test_examples_kernels_count_negative_indices_from_the_end(dev):
+    """pallas_gather and pallas_scatter take an index in [-T, 0) as row
+    T + i, as jnp.take and .at[].add do, and an index outside [-T, T) as
+    outside the table (NaN gathered, update dropped)."""
+    n_rows, m = 5000, 70_001
+    x = tpg.make_inputs(n_rows, m, dev)
+    edges = torch.tensor([-1, -n_rows, -n_rows - 1, n_rows, -2, 0],
+                         dtype=torch.int32, device=dev)
+    idx = x["idx"].clone()
+    idx[::3] = edges.repeat(m // 18 + 1)[:idx[::3].shape[0]]
+    got = tpg.pallas_gather(x["table"], idx)
+    assert torch.equal(got.view(torch.int32), tpg.pallas_gather_plain(
+        x["table"], idx).view(torch.int32))          # NaN bits included
+    assert torch.equal(got[idx == -1],
+                       x["table"][-1].expand((idx == -1).sum(), 2))
+    assert got[(idx < -n_rows) | (idx >= n_rows)].isnan().all()
+    assert not got[(idx >= -n_rows) & (idx < n_rows)].isnan().any()
+    got = tpg.pallas_scatter(idx, x["vals"], n_rows)
+    ref = tpg.pallas_scatter_plain(idx, x["vals"], n_rows)
+    bound = tpg.scatter_order_bound(idx, x["vals"], n_rows)
+    assert ((got - ref).abs() <= bound).all()
+    last = x["vals"][(idx == -1) | (idx == n_rows - 1)].sum(0)
+    assert ((got[-1] - last).abs() <= bound[-1]).all()
+
+
+@pytest.mark.parametrize("case", ["tail", "offset rows", "odd floats",
+                                  "outside", "one row"])
+def test_pallas_scatter_views_tails_outside_and_one_row(dev, case):
+    """M = 2^20 + 3 (a vector tail of 3), idx and vals at offsets that
+    misalign their 16-byte loads, indices outside the table (dropped) and
+    in [-n_rows, 0) (counted from the end), and every update to one row
+    (n = M): within the order bound of the plain twin, which adds in
+    index order."""
+    n_rows, m = 1 << 19, (1 << 20) + 3
+    idx, vals = _scatter_inputs(case, m, n_rows, dev)
+    assert idx.shape == (m,) and vals.shape == (m, 2)
+    assert idx.is_contiguous() and vals.is_contiguous()
+    before = kernels.launch_counts["pallas_scatter"]
+    got = tpg.pallas_scatter(idx, vals, n_rows)
+    assert kernels.launch_counts["pallas_scatter"] == before + 1
+    ref = tpg.pallas_scatter_plain(idx, vals, n_rows)
+    bound = tpg.scatter_order_bound(idx, vals, n_rows)
+    assert ((got - ref).abs() <= bound).all()
+    if case == "outside":
+        assert not ((idx >= 0) & (idx < n_rows)).all()
+    if case == "one row":
+        assert bound[5].min() > 0 and (got[:5] == 0).all()
 
 
 def test_get_rays_on_the_card_equals_the_cpu(dev):

@@ -159,6 +159,39 @@ def test_pallas_scatter_twin_within_order_bound_of_jax_kernel(
         assert (np.abs(got.numpy() - other) <= bound).all()
 
 
+def test_plain_twins_take_rows_outside_the_table_as_the_kernels_do():
+    """Indices past either end and in [-T, 0), as JAX's XLA calls take
+    them: jnp.take and .at[].add count -T <= i < 0 from the end of the
+    table, gather NaN for an index outside [-T, T) and drop its update.
+    The CUDA kernels do the same (tests/test_torch_cuda.py)."""
+    table, idx, vals = _rows(3)
+    idx[::5] = T + 3
+    idx[1::11] = -T - 2
+    idx[2::13] = -1
+    idx[3::17] = -T
+    idx[4::19] = -(T // 2) - 1
+    ref = np.asarray(jnp.zeros((T, 2), jnp.float32).at[idx].add(vals))
+    got = tpg.pallas_scatter(_t(idx), _t(vals), T)
+    bound = tpg.scatter_order_bound(_t(idx), _t(vals), T).numpy()
+    assert (np.abs(got.numpy() - ref) <= bound).all()
+    assert got[-1].ne(0).all() and got[0].ne(0).all()
+    rows = tpg.pallas_gather(_t(table), _t(idx)).numpy()
+    outside = (idx >= T) | (idx < -T)
+    assert outside.any() and (idx == -1).any()
+    assert np.isnan(rows[outside]).all() and not np.isnan(rows[~outside]).any()
+    np.testing.assert_array_equal(
+        rows, np.asarray(jnp.take(jnp.asarray(table), idx, axis=0)))
+    assert (rows[idx == -1] == table[-1]).all()
+    neg = np.array([-1, 0], dtype=np.int32)
+    ones = np.ones((2, 2), np.float32)
+    np.testing.assert_array_equal(
+        tpg.pallas_scatter(_t(neg), _t(ones), T).numpy(),
+        np.asarray(jnp.zeros((T, 2), jnp.float32).at[neg].add(ones)))
+    np.testing.assert_array_equal(
+        tpg.pallas_gather(_t(table), _t(neg)).numpy(),
+        np.asarray(jnp.take(jnp.asarray(table), neg, axis=0)))
+
+
 def test_cpu_calls_launch_no_kernel():
     tbl, flat, rows = _words(2)
     table, idx, vals = _rows(2)

@@ -201,3 +201,81 @@ def test_encode_dispatch_modes_and_refusals():
                           compute_dtype="bfloat16", shared_encoder=False)
     with pytest.raises(NotImplementedError):
         _encode(params, state, unshared, x)
+
+
+@pytest.mark.parametrize("scale,log2_T", [(0.5, 19), (0.5, 12), (1.0, 15),
+                                          (2.0, 13)])
+def test_level_params_cached_equal_an_uncached_build(scale, log2_T):
+    cfg = thg.HashGridConfig.for_scene_scale(scale, log2_table_size=log2_T)
+    got = tb3._level_params(cfg)
+    again = thg.HashGridConfig.for_scene_scale(scale, log2_table_size=log2_T)
+    assert again is not cfg and tb3._level_params(again) is got
+    fresh = tb3._level_params.__wrapped__(cfg)
+    assert fresh is not got
+    for name in ("scales", "nps", "dense"):
+        a, b = getattr(got, name), getattr(fresh, name)
+        assert a.dtype == b.dtype and not a.flags.writeable
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got.scales, cfg.level_scales())
+    addrs = tb3.brick3_addrs(cfg)
+    assert got.nps.tolist() == [a.np_ for a in addrs]
+    assert got.dense.tolist() == [int(a.dense) for a in addrs]
+    assert got.ptrs == tuple(a.ctypes.data
+                             for a in (got.scales, got.nps, got.dense))
+
+
+def _tie_table(seed):
+    """Every value halfway between two bf16 values."""
+    bf = torch.from_numpy(_table(seed)).to(torch.bfloat16)
+    return ((bf.view(torch.int16).to(torch.int32) << 16) | 0x8000).view(
+        torch.float32)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_plain_twin_reads_the_f32_table_as_the_packed_words(ties):
+    """The training path's read of the f32 table (each corner rounded to
+    bf16) gives the bits of the read of the packed words."""
+    table = _tie_table(11) if ties else torch.from_numpy(_table(11))
+    packed = tb3.pack_brick3_table(table)
+    if ties:
+        lo, _ = tb3._unpack_bf16(packed.reshape(-1))
+        up = lo.float().abs() > table[..., 0].reshape(-1).abs()
+        assert up.any() and (~up).any()      # rounded to even, both ways
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(np.concatenate([
+        _ray_stream(), rng.uniform(0, 1, (999, 3)).astype(np.float32)]))
+    ref = tb3._encode_plain(packed, x, T_CFG)
+    assert torch.equal(tb3._encode_plain(table, x, T_CFG), ref)
+    assert torch.equal(
+        tb3.hashgrid_encode_brick3_fwd_impl(table, x, T_CFG), ref)
+    assert torch.equal(tb3.hashgrid_encode_brick3_fwd_impl(
+        table, x, T_CFG, packed=packed), ref)
+
+
+@pytest.mark.parametrize("impl,mode", [("brick3_plain", "plain"),
+                                       ("brick3", "runs")])
+def test_training_forward_without_a_packed_table_matches_jax(impl, mode):
+    """The encode as the training step calls it (encode_dispatch, the
+    table requiring grad, no packed table) against the reference's
+    forward in the same mode."""
+    table = _table(13)
+    x = _ray_stream(seed=14)
+    ref = jax.jit(lambda t, v: jb3.hashgrid_encode_brick3_fwd_impl(
+        t, v, J_CFG, mode))(table, x)
+    ref = np.asarray(ref.astype(jnp.float32))
+    tt = torch.from_numpy(table).requires_grad_()
+    got = thg.encode_dispatch(tt, torch.from_numpy(x), T_CFG,
+                              torch.bfloat16, impl)
+    assert got.requires_grad and got.dtype == torch.bfloat16
+    with torch.no_grad():
+        packed = tb3.pack_brick3_table(tt)
+        assert torch.equal(got, tb3.hashgrid_encode_brick3_fwd_impl(
+            tt, torch.from_numpy(x), T_CFG, mode, packed=packed))
+    got = got.detach().float().numpy()
+    if mode == "plain":
+        # as test_forward_within_one_bf16_ulp_of_jax_plain
+        mag = np.maximum(np.abs(got), np.abs(ref))
+        assert (np.abs(got - ref) <= np.exp2(np.frexp(mag)[1] - 8.0)).all()
+    else:
+        # as test_forward_matches_jax_runs_mode_on_ray_stream
+        np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-3)
