@@ -64,13 +64,17 @@ CPU fallback):
      step each;
   8. the examples' kernels: bench_vmem_gather and proto_pallas_gather
      run at their default sizes (4,194,304 words from a (4096, 128) table;
-     2^20 rows gathered from and added into a (2^19, 2) table), launch
-     counts reset just before and read just after; then each of their four
-     kernels against its plain twin at those sizes (the three gathers
-     bit-equal, the scatter within its f32 order bound), median times of
-     kernel, twin and library call, and the device time of kernel and
-     library call without host gaps (CUDA graphs); then profile_step at
-     its defaults (the dedup step split into its parts);
+     2^20 rows gathered from and added into a (2^19, 2) table), and
+     bench_vmem_gather again on a (WIDE_ROWS, 128) table, too large for
+     tal_sublane to stage, so that its wrapper launches tal_sublane_l2;
+     launch counts reset just before and read just after; then each of
+     their five kernels against its plain twin at those sizes (the four
+     gathers bit-equal, the three kernel-8 ones also on the script's edge
+     draw, `with_edges`; the scatter within its f32 order bound), median
+     times of kernel, twin and library call, and the device time of
+     kernel and library call without host gaps (CUDA graphs); then
+     profile_step at its defaults (the dedup step split into its
+     parts);
   9. a JSON line with every kernel's check, launches (per phase), times
      and bound;
  10. the last line: {"ok": true, "device": {...}}.
@@ -206,6 +210,7 @@ AGG_SAMPLES = 2048 * 64
 # state, held beside seed 3 (TRAIN_CPU_GRAD_RTOL)
 PIN_SEEDS = tuple(range(10, 58))
 FAMILY_STEPS = 48               # slab, brick, pallas: 3 warmup updates
+WIDE_ROWS = 8192                # phase 8: a table above the staged limit
 # hash family -> its table-gradient kernel
 FAMILY_KERNELS = {"brick3": "brick3_table_grad",
                   "dedup": "tcnn_table_grad", "slab": "slab_table_grad",
@@ -881,63 +886,94 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 
 def gather_check(name: str, fn, plain, library, args, n_bytes: int,
-                 shape: str) -> dict:
+                 shape: str, edge_args=None) -> dict:
     """A gather kernel of the examples against its plain twin (must be
-    bit-equal), with the times of the kernel's wrapper, of the twin and of
-    one PyTorch call for the same gather, the wrapper's and the library
+    bit-equal, on the script's draw and, where given, on its edge draw),
+    with the times of the kernel's wrapper, of the twin and of one
+    PyTorch call for the same gather, the wrapper's and the library
     call's device time alone (graph_ms), and the bytes bound."""
-    got, ref = fn(*args), plain(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(got, ref), f"{name} kernel != plain twin")
+    errs = []
+    for draw in (args, edge_args) if edge_args is not None else (args,):
+        got, ref = fn(*draw), plain(*draw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"{name} kernel != plain twin")
+        errs.append(float((got.double() - ref.double()).abs().max()))
     rec = {
         "at": "examples (the script's default size)", "check": "bit-equal",
-        "max_abs_err": float((got.double() - ref.double()).abs().max()),
-        "shape": shape,
+        "max_abs_err": max(errs), "shape": shape,
         "ms": median_ms(lambda: fn(*args)),
         "device_ms": graph_ms(lambda: fn(*args)),
         "plain_ms": median_ms(lambda: plain(*args)),
         "library_ms": median_ms(library),
         "library_device_ms": graph_ms(library),
     }
+    if edge_args is not None:
+        rec["edge_check"] = ("bit-equal on the edge draw (with_edges: rows "
+                             "from the end and outside the table, lanes "
+                             "outside [0, 128))")
     rec.update(bound(n_bytes, 0))
     return rec
 
 
-def examples_phase(dev) -> tuple:
-    """Phase 8: bench_vmem_gather and proto_pallas_gather run at their
-    default sizes (their kernels' launches counted), then each of their
-    four kernels against its plain twin at those sizes; then profile_step
-    at its defaults. Returns ({kernel: check record}, launch counts of the
-    two scripts' runs, profile_step's times)."""
-    E, R = tvg.ELEMS, tvg.R
-    T, M = tpg.T, tpg.M
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    tvg.run(E, R, device=dev)
-    tpg.run(T, M, device=dev)
-    torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
-    print(f"[examples] launches of the two scripts' runs: {launches}")
-
+def vmem_gather_checks(E: int, R: int, dev) -> dict:
+    """tal_sublane and rowgather_onehot through their wrappers on the
+    script's draw and its edge draw, at E words from an (R, 128) table,
+    keyed by the kernel the wrapper launches at this R."""
     x = tvg.make_inputs(E, R, dev)
+    edges = tvg.with_edges(x, R)
     tbl, rows_l = x["tbl"], x["rows2d"].long()
     flat_l = ((x["row"].long() << 7) | x["lane"].long()).reshape(-1)
     idx_bytes = E * 4                                  # one int32 index each
+    tal = tvg.tal_kernel(R)
     recs = {
-        "tal_sublane": gather_check(
-            "tal_sublane", tvg.tal_sublane, tvg.tal_sublane_plain,
+        tal: gather_check(
+            tal, tvg.tal_sublane, tvg.tal_sublane_plain,
             # take_along_axis over the rows (int64 indices, as torch takes)
             lambda: torch.gather(tbl, 0, rows_l), (tbl, x["rows2d"]),
             R * 128 * 4 + idx_bytes + E * 4,
-            f"E={E} words from a ({R}, 128) int32 table"),
+            f"E={E} words from a ({R}, 128) int32 table",
+            (tbl, edges["rows2d"])),
         "rowgather_onehot": gather_check(
             "rowgather_onehot", tvg.rowgather_onehot,
             tvg.rowgather_onehot_plain,
             lambda: torch.take(tbl, flat_l), (tbl, x["row"], x["lane"]),
             R * 128 * 4 + 2 * idx_bytes + E * 4,
-            f"E={E} words (row, lane) from a ({R}, 128) int32 table"),
+            f"E={E} words (row, lane) from a ({R}, 128) int32 table",
+            (tbl, edges["row"], edges["lane"])),
     }
-    del x, rows_l, flat_l
+    for rec in recs.values():
+        rec["at"] = f"examples (the script's default E, R = {R})"
+    return recs
+
+
+def examples_phase(dev) -> tuple:
+    """Phase 8: bench_vmem_gather (at its default table and at
+    WIDE_ROWS, too large for tal_sublane to stage) and proto_pallas_gather
+    run at their default sizes (their kernels' launches counted), then
+    each of their five kernels against its plain twin at those sizes
+    (rowgather_onehot at both tables); then profile_step at its
+    defaults. Returns ({kernel: check record}, launch counts of the
+    scripts' runs, profile_step's times)."""
+    E, R = tvg.ELEMS, tvg.R
+    T, M = tpg.T, tpg.M
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tvg.run(E, R, device=dev)
+    tvg.run(E, WIDE_ROWS, device=dev)
+    tpg.run(T, M, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    print(f"[examples] launches of the scripts' runs: {launches}")
+
+    recs = vmem_gather_checks(E, R, dev)
+    wide = vmem_gather_checks(E, WIDE_ROWS, dev)
+    recs["tal_sublane_l2"] = wide["tal_sublane_l2"]
+    # rowgather_onehot has one kernel for any R: the wide table's check
+    # stands beside the default one
+    rec = recs["rowgather_onehot"]
+    rec["wide_table"] = wide["rowgather_onehot"]
+    rec["max_abs_err"] = max(rec["max_abs_err"],
+                             rec["wide_table"]["max_abs_err"])
     p = tpg.make_inputs(T, M, dev)
     table, idx, vals = p["table"], p["idx"], p["vals"]
     recs["pallas_gather"] = gather_check(
@@ -973,6 +1009,7 @@ def examples_phase(dev) -> tuple:
     rec.update(bound(M * 4 + M * 8 + T * 8, 2 * M))
     for name, r in recs.items():
         print_check(name, r)
+    print_check("rowgather_onehot", recs["rowgather_onehot"]["wide_table"])
     del p, table, idx, vals, got, ref, tol, err
 
     t0 = time.perf_counter()
@@ -1703,6 +1740,8 @@ def main() -> None:
         ("rowgather_onehot", "rowgather_onehot", "vmem_gather.cu",
          "examples/bench_vmem_gather.py:72", "rowgather_onehot",
          "examples"),
+        ("tal_sublane_l2", "tal_sublane_l2", "vmem_gather.cu",
+         "examples/bench_vmem_gather.py:54", "tal_sublane", "examples"),
         ("pallas_gather", "pallas_gather", "proto_gather.cu",
          "examples/proto_pallas_gather.py:52", "pallas_gather", "examples"),
         ("pallas_scatter", "pallas_scatter", "proto_gather.cu",

@@ -1,5 +1,6 @@
 """What every example shares: the device flag, the device line a run
-starts with, and the timer."""
+starts with, the timer, and how the gathers and the scatter take an
+index outside their table."""
 
 from __future__ import annotations
 
@@ -45,3 +46,12 @@ def timeit(fn, device, warmup: int = 2, iters: int = 8) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) / iters
+
+
+def table_rows(idx: torch.Tensor, n_rows: int):
+    """idx as int64 rows, an index in [-n_rows, 0) counted from the end
+    of the table (as jnp.take, take_along_axis and .at[].add count it),
+    and the mask of the rows inside the table."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n_rows, idx)
+    return idx, (idx >= 0) & (idx < n_rows)

@@ -24,27 +24,18 @@ import argparse
 import torch
 
 from .. import kernels
-from .common import add_device_arg, device_line, timeit
+from .common import add_device_arg, device_line, table_rows, timeit
 
 T = 1 << 19
 F = 2            # the kernels move a row as one float2
 M = 1 << 20      # 1M gathers
 
 
-def _rows_of(idx: torch.Tensor, n_rows: int):
-    """idx as int64 rows, an index in [-n_rows, 0) counted from the end of
-    the table (as jnp.take and .at[].add count it), and the mask of the
-    rows inside the table."""
-    idx = idx.long()
-    idx = torch.where(idx < 0, idx + n_rows, idx)
-    return idx, (idx >= 0) & (idx < n_rows)
-
-
 def pallas_gather_plain(table: torch.Tensor,
                         idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin of pallas_gather: a row outside the table
     gathers NaN, as the kernel does."""
-    rows, inside = _rows_of(idx, table.shape[0])
+    rows, inside = table_rows(idx, table.shape[0])
     got = table[torch.where(inside, rows, 0)]
     return torch.where(inside[:, None], got, float("nan"))
 
@@ -53,7 +44,7 @@ def pallas_scatter_plain(idx: torch.Tensor, vals: torch.Tensor,
                          n_rows: int) -> torch.Tensor:
     """Plain PyTorch twin of pallas_scatter: an update to a row outside
     the table is dropped, as the kernel drops it."""
-    rows, inside = _rows_of(idx, n_rows)
+    rows, inside = table_rows(idx, n_rows)
     out = torch.zeros((n_rows, F), dtype=torch.float32, device=vals.device)
     return out.index_put_((rows[inside],), vals[inside], accumulate=True)
 
@@ -117,7 +108,7 @@ def scatter_order_bound(idx: torch.Tensor, vals: torch.Tensor,
     terms in different orders: 2 (n - 1) 2^-24 sum|terms| (updates outside
     the table dropped)."""
     dev = vals.device
-    rows, inside = _rows_of(idx, n_rows)
+    rows, inside = table_rows(idx, n_rows)
     idx, vals = rows[inside], vals[inside]
     abs_sum = torch.zeros((n_rows, F), device=dev).index_add_(
         0, idx, vals.abs())

@@ -67,9 +67,12 @@ KERNELS = {
     **{name: ("stream_table_grad.cu", (_P, _P, _P, _I64, _I32, _I64, _P))
        for name in ("tcnn_table_grad", "slab_table_grad",
                     "brick_table_grad")},
-    # the examples' microbenchmark kernels (radnerf_tpu_torch/examples/)
+    # the examples' microbenchmark kernels (radnerf_tpu_torch/examples/);
+    # tal_sublane stages the table, tal_sublane_l2 takes tables too large
+    # to stage
     # (tbl, rows, out, n, n_rows, stream)
-    "tal_sublane": ("vmem_gather.cu", (_P, _P, _P, _I64, _I32, _P)),
+    **{name: ("vmem_gather.cu", (_P, _P, _P, _I64, _I32, _P))
+       for name in ("tal_sublane", "tal_sublane_l2")},
     # (tbl, row, lane, out, n, n_rows, stream)
     "rowgather_onehot": ("vmem_gather.cu",
                          (_P, _P, _P, _P, _I64, _I32, _P)),

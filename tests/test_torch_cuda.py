@@ -357,6 +357,114 @@ def test_vmem_gather_kernels_equal_plain(dev):
         tvg.tal_sublane(x["tbl"], x["rows2d"].long())
 
 
+GATHER_ENTRY_POINTS = ("tal_sublane", "tal_sublane_l2", "rowgather_onehot")
+
+
+def _gather_launch(name, tbl, *idx):
+    """One launch of a kernel-8 entry point, whatever R, bypassing
+    tal_sublane's pick."""
+    out = torch.empty_like(idx[0])
+    kernels.launch(name, tbl.data_ptr(), *(t.data_ptr() for t in idx),
+                   out.data_ptr(), out.numel(), tbl.shape[0],
+                   torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _gather_args(name, x):
+    if name.startswith("tal_sublane"):
+        return tvg.tal_sublane_plain, (x["tbl"], x["rows2d"])
+    return tvg.rowgather_onehot_plain, (x["tbl"], x["row"], x["lane"])
+
+
+# (entry point, R, E): R = 300 (no power of two), 4096 (the script's),
+# tal_sublane's staged limit, and one row above it (where the staged
+# kernel refuses); E = 128 words (one tile) or 517 tiles (the last block
+# not filled)
+GATHER_CASES = [
+    (name, n_rows, elems)
+    for name in GATHER_ENTRY_POINTS
+    for n_rows, elems in ((300, 128), (300, 128 * 517), (4096, 128 * 517),
+                          (tvg.STAGED_MAX_ROWS, 128 * 517),
+                          (tvg.STAGED_MAX_ROWS + 1, 128 * 517))
+    if name != "tal_sublane" or n_rows <= tvg.STAGED_MAX_ROWS]
+
+
+@pytest.mark.parametrize("name,n_rows,elems", GATHER_CASES)
+def test_vmem_gather_entry_points_equal_plain_with_edges(dev, name, n_rows,
+                                                         elems):
+    """Each kernel-8 entry point bit-equal to its twin on the default
+    draw and on the edge draw (rows from the end and outside the table,
+    lanes outside [0, 128), mixed into the random indices)."""
+    x = tvg.make_inputs(elems, n_rows, dev, seed=n_rows)
+    for draw in (x, tvg.with_edges(x, n_rows)):
+        plain, args = _gather_args(name, draw)
+        before = kernels.launch_counts[name]
+        got = _gather_launch(name, *args)
+        assert kernels.launch_counts[name] == before + 1
+        assert torch.equal(got, plain(*args))
+    assert (got == -1).any()
+    if name == "rowgather_onehot":
+        assert (got[(args[2] < 0) | (args[2] >= 128)] == 0).all()
+
+
+@pytest.mark.parametrize("n_rows", [tvg.STAGED_MAX_ROWS,
+                                    tvg.STAGED_MAX_ROWS + 1])
+def test_vmem_gather_wrappers_pick_the_kernel_by_rows(dev, n_rows):
+    """At the staged limit tal_sublane launches its staged kernel; one row
+    above it, tal_sublane_l2; rowgather_onehot has one kernel for any R;
+    each bit-equal to its twin."""
+    x = tvg.with_edges(tvg.make_inputs(128 * 300, n_rows, dev, seed=2),
+                       n_rows)
+    staged = n_rows <= tvg.STAGED_MAX_ROWS
+    for fn, name, launched in (
+            (tvg.tal_sublane, "tal_sublane",
+             {"tal_sublane": int(staged), "tal_sublane_l2": int(not staged),
+              "rowgather_onehot": 0}),
+            (tvg.rowgather_onehot, "rowgather_onehot",
+             {"tal_sublane": 0, "tal_sublane_l2": 0,
+              "rowgather_onehot": 1})):
+        plain, args = _gather_args(name, x)
+        before = dict(kernels.launch_counts)
+        got = fn(*args)
+        assert {k: kernels.launch_counts[k] - before[k]
+                for k in launched} == launched
+        assert torch.equal(got, plain(*args))
+
+
+def test_tal_sublane_staged_launch_refused_raises(dev):
+    """The staged kernel asked for more shared memory than a block has (a
+    table one row above the limit: a 232,480-byte slice) refuses the
+    launch: the call raises and counts nothing, and the next launch runs
+    and is right."""
+    n_rows = tvg.STAGED_MAX_ROWS + 1
+    x = tvg.make_inputs(128 * 64, n_rows, dev, seed=3)
+    plain, args = _gather_args("tal_sublane", x)
+    before = kernels.launch_counts["tal_sublane"]
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _gather_launch("tal_sublane", *args)
+    assert kernels.launch_counts["tal_sublane"] == before
+    y = tvg.make_inputs(128 * 64, 4096, dev, seed=3)
+    plain, args = _gather_args("tal_sublane", y)
+    got = _gather_launch("tal_sublane", *args)
+    assert kernels.launch_counts["tal_sublane"] == before + 1
+    assert torch.equal(got, plain(*args))
+
+
+def test_tal_sublane_rejects_a_misaligned_table(dev):
+    """The staged kernel copies the table in 16-byte chunks: a table at a
+    4-byte offset is refused by the wrapper (ValueError), and the same
+    words through rowgather_onehot are gathered right."""
+    x = tvg.make_inputs(128 * 8, 64, dev, seed=5)
+    words = torch.empty(64 * 128 + 1, dtype=torch.int32, device=dev)
+    tbl = words[1:].view(64, 128)
+    tbl.copy_(x["tbl"])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tvg.tal_sublane(tbl, x["rows2d"])
+    assert torch.equal(tvg.rowgather_onehot(tbl, x["row"], x["lane"]),
+                       tvg.rowgather_onehot_plain(x["tbl"], x["row"],
+                                                  x["lane"]))
+
+
 def test_proto_gather_kernels_equal_plain(dev):
     n_rows, m = 5000, 200_003
     x = tpg.make_inputs(n_rows, m, dev)

@@ -31,8 +31,8 @@ EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 VMEM = pltpu.VMEM
 R, E = 64, 512              # kernel 8: table rows, gathered words
 T, M, TILE = 256, 1024, 128  # kernel 9: table rows, updates, grid tile
-NEW_KERNELS = ("tal_sublane", "rowgather_onehot", "pallas_gather",
-               "pallas_scatter")
+NEW_KERNELS = ("tal_sublane", "tal_sublane_l2", "rowgather_onehot",
+               "pallas_gather", "pallas_scatter")
 
 
 @pytest.fixture(scope="module")
@@ -103,6 +103,130 @@ def test_rowgather_onehot_twin_equals_jax_kernel(vmem_mod, seed):
         row.shape))
     got = tvg.rowgather_onehot(_t(tbl.view(np.int32)), _t(row), _t(lane))
     np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+
+
+def _jax_tal(vmem_mod, tbl, rows):
+    return np.asarray(pl.pallas_call(
+        vmem_mod._tal_kernel,
+        out_shape=jax.ShapeDtypeStruct(rows.shape, jnp.uint32),
+        in_specs=[pl.BlockSpec(memory_space=VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=VMEM), interpret=True,
+    )(jnp.asarray(tbl), jnp.asarray(rows)))
+
+
+def _jax_rowgather(vmem_mod, tbl, row, lane):
+    return np.asarray(pl.pallas_call(
+        vmem_mod._rowgather_kernel,
+        out_shape=jax.ShapeDtypeStruct(row.shape, jnp.uint32),
+        in_specs=[pl.BlockSpec(memory_space=VMEM)] * 3,
+        out_specs=pl.BlockSpec(memory_space=VMEM), interpret=True,
+    )(jnp.asarray(tbl), jnp.asarray(row), jnp.asarray(lane)))
+
+
+# rows at and past either end of the R-row table: -1, -R, -R/2 - 1 (from
+# the end), -R - 1, R, R + 3 (outside), 0, R - 1; lanes -1, 128, 200, 127
+EDGE_ROWS = tuple(tvg.edge_rows(R))
+EDGE_LANES = tuple(tvg.EDGE_LANES)
+
+
+def _edge_rows(case, rng, shape):
+    """(E / 128, 128) rows of one case: every edge row in turn
+    ("from the end": -1, -R, -R/2 - 1; "past either end": -R - 1, R,
+    R + 3; "all edges" adds 0 and R - 1), or the edges mixed into a random
+    draw."""
+    edges = {"from the end": EDGE_ROWS[:3], "past either end": EDGE_ROWS[3:6],
+             "all edges": EDGE_ROWS}.get(case)
+    if edges is None:                                   # "mixed"
+        rows = rng.integers(0, R, shape, dtype=np.int64).astype(np.int32)
+        rows.flat[::3] = np.resize(np.array(EDGE_ROWS, np.int32),
+                                   rows.flat[::3].shape)
+        return rows
+    return np.resize(np.array(edges, np.int32), shape)
+
+
+@pytest.mark.parametrize("case", ["from the end", "past either end",
+                                  "all edges", "mixed"])
+def test_tal_sublane_twin_equals_jax_kernel_outside_the_table(vmem_mod,
+                                                              case):
+    """A row in [-R, 0) reads row R + r, a row outside [-R, R) gives
+    0xFFFFFFFF (take_along_axis' fill for a u32 word): the twin's bits
+    equal the JAX kernel's (interpret mode) on two 128-lane tiles."""
+    rng = np.random.default_rng(len(case))
+    tbl = rng.integers(0, 2**32, (R, 128), dtype=np.uint32)
+    rows = _edge_rows(case, rng, (2, 128))
+    ref = _jax_tal(vmem_mod, tbl, rows)
+    got = tvg.tal_sublane(_t(tbl.view(np.int32)), _t(rows))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+    back = (rows < 0) & (rows >= -R)
+    outside = (rows < -R) | (rows >= R)
+    lanes = np.broadcast_to(np.arange(128), rows.shape)
+    assert (ref[outside] == 0xFFFFFFFF).all()
+    np.testing.assert_array_equal(ref[back], tbl[rows[back] + R, lanes[back]])
+    assert case == "mixed" or (back | outside).any()
+
+
+@pytest.mark.parametrize("case", ["rows from the end", "rows past either end",
+                                  "lanes outside", "mixed"])
+def test_rowgather_onehot_twin_equals_jax_kernel_outside_the_table(
+        vmem_mod, case):
+    """A lane outside [0, 128) gives 0 whatever the row (the one-hot sum
+    matches no lane); for a lane inside, a row in [-R, 0) reads row R + r
+    and a row outside [-R, R) gives 0xFFFFFFFF: the twin's bits equal the
+    JAX kernel's (interpret mode) on two 128-lane tiles."""
+    rng = np.random.default_rng(10 + len(case))
+    tbl = rng.integers(0, 2**32, (R, 128), dtype=np.uint32)
+    shape = (2, 128)
+    lane = rng.integers(0, 128, shape, dtype=np.int64).astype(np.int32)
+    if case == "rows from the end":
+        row = _edge_rows("from the end", rng, shape)
+    elif case == "rows past either end":
+        row = _edge_rows("past either end", rng, shape)
+    elif case == "lanes outside":
+        # each outside lane with in-range rows and with every edge row
+        row = np.resize(np.array(EDGE_ROWS + (5,), np.int32), shape)
+        lane = np.resize(np.repeat(np.array(EDGE_LANES, np.int32), 9), shape)
+    else:
+        row = _edge_rows("mixed", rng, shape)
+        lane.flat[1::5] = np.resize(np.array(EDGE_LANES, np.int32),
+                                    lane.flat[1::5].shape)
+    ref = _jax_rowgather(vmem_mod, tbl, row, lane)
+    got = tvg.rowgather_onehot(_t(tbl.view(np.int32)), _t(row), _t(lane))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+    hit = (lane >= 0) & (lane < 128)
+    outside = (row < -R) | (row >= R)
+    assert (ref[~hit] == 0).all()
+    assert (ref[hit & outside] == 0xFFFFFFFF).all()
+    if case != "rows from the end":
+        assert (~hit | outside).any()
+
+
+def test_tal_sublane_picks_the_staged_kernel_by_rows_alone():
+    """tal_sublane's staged kernel takes tables up to STAGED_MAX_ROWS
+    rows (their 8-lane slices fit one block's 232,448 bytes of shared
+    memory); one row more goes to tal_sublane_l2."""
+    smem, m = 232_448, tvg.STAGED_MAX_ROWS
+    assert m * 32 <= smem < (m + 1) * 32
+    assert tvg.tal_kernel(1) == tvg.tal_kernel(m) == "tal_sublane"
+    assert tvg.tal_kernel(m + 1) == "tal_sublane_l2"
+    assert "tal_sublane_l2" in kernels.KERNELS
+
+
+def test_edge_draw_mixes_every_edge_into_the_default_draw():
+    """with_edges (the card tests' and chip_smoke.py's edge draw) keeps
+    the table and puts every edge row and lane among random indices, and
+    some edge lanes on edge rows."""
+    x = tvg.make_inputs(128 * 6, R, "cpu", seed=4)
+    e = tvg.with_edges(x, R)
+    assert e["tbl"] is x["tbl"]
+    for key in ("rows2d", "row"):
+        vals = set(e[key].view(-1).tolist())
+        assert set(tvg.edge_rows(R)) <= vals and len(vals) > 20
+        assert torch.equal(e[key].view(-1)[1::3], x[key].view(-1)[1::3])
+    lane = e["lane"].view(-1)
+    assert set(tvg.EDGE_LANES) <= set(lane.tolist())
+    both = (((lane < 0) | (lane >= 128))
+            & ((e["row"].view(-1) < -R) | (e["row"].view(-1) >= R)))
+    assert both.any()
 
 
 def _rows(seed):
@@ -217,6 +341,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tvg.rowgather_onehot(tbl, rows, rows[:1])
     with pytest.raises(ValueError):
         tvg.make_inputs(1000, R, "cpu")
+    with pytest.raises(ValueError):
+        tvg.tal_sublane(tbl[:0], rows)                # a table with no row
     table = torch.zeros((T, 2))
     idx = torch.zeros(M, dtype=torch.int32)
     with pytest.raises(ValueError):
