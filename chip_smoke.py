@@ -69,8 +69,8 @@ CPU fallback):
      tal_sublane to stage, so that its wrapper launches tal_sublane_l2;
      launch counts reset just before and read just after; then each of
      their five kernels against its plain twin at those sizes (the four
-     gathers bit-equal, the three kernel-8 ones also on the script's edge
-     draw, `with_edges`; the scatter within its f32 order bound), median
+     gathers bit-equal, also on their script's edge draw, `with_edges`;
+     the scatter within its f32 order bound), median
      times of kernel, twin and library call, and the device time of
      kernel and library call without host gaps (CUDA graphs); then
      profile_step at its defaults (the dedup step split into its
@@ -886,18 +886,24 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 
 def gather_check(name: str, fn, plain, library, args, n_bytes: int,
-                 shape: str, edge_args=None) -> dict:
+                 shape: str, edge_args=None,
+                 edges: str = "rows from the end and outside the table, "
+                              "lanes outside [0, 128)") -> dict:
     """A gather kernel of the examples against its plain twin (must be
-    bit-equal, on the script's draw and, where given, on its edge draw),
-    with the times of the kernel's wrapper, of the twin and of one
-    PyTorch call for the same gather, the wrapper's and the library
-    call's device time alone (graph_ms), and the bytes bound."""
+    bit-equal, as 32-bit words so that NaN rows compare, on the script's
+    draw and, where given, on its edge draw), with the times of the
+    kernel's wrapper, of the twin and of one PyTorch call for the same
+    gather, the wrapper's and the library call's device time alone
+    (graph_ms), and the bytes bound."""
     errs = []
     for draw in (args, edge_args) if edge_args is not None else (args,):
         got, ref = fn(*draw), plain(*draw)
         torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"{name} kernel != plain twin")
-        errs.append(float((got.double() - ref.double()).abs().max()))
+        check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+              f"{name} kernel != plain twin")
+        # NaN - NaN where both gathered NaN: bit-equal there
+        diff = (got.double() - ref.double()).abs().nan_to_num(nan=0.0)
+        errs.append(float(diff.max()))
     rec = {
         "at": "examples (the script's default size)", "check": "bit-equal",
         "max_abs_err": max(errs), "shape": shape,
@@ -908,9 +914,7 @@ def gather_check(name: str, fn, plain, library, args, n_bytes: int,
         "library_device_ms": graph_ms(library),
     }
     if edge_args is not None:
-        rec["edge_check"] = ("bit-equal on the edge draw (with_edges: rows "
-                             "from the end and outside the table, lanes "
-                             "outside [0, 128))")
+        rec["edge_check"] = f"bit-equal on the edge draw (with_edges: {edges})"
     rec.update(bound(n_bytes, 0))
     return rec
 
@@ -979,7 +983,9 @@ def examples_phase(dev) -> tuple:
     recs["pallas_gather"] = gather_check(
         "pallas_gather", tpg.pallas_gather, tpg.pallas_gather_plain,
         lambda: torch.index_select(table, 0, idx), (table, idx),
-        M * 4 + M * 8 + T * 8, f"M={M} rows from a ({T}, 2) f32 table")
+        M * 4 + M * 8 + T * 8, f"M={M} rows from a ({T}, 2) f32 table",
+        (table, tpg.with_edges(p, T)["idx"]),
+        "indices from the end and outside the table")
 
     got = tpg.pallas_scatter(idx, vals, T)
     ref = tpg.pallas_scatter_plain(idx, vals, T)

@@ -5,7 +5,9 @@ examples/proto_pallas_gather.py).
   XLA gather / XLA scatter-add   the baselines, as PyTorch calls
                                  (index_select, index_add_)
   pallas gather                  csrc/proto_gather.cu's pallas_gather:
-                                 one thread per row, one float2 load
+                                 one thread a row, one float2 load (two
+                                 4-byte loads from a table at an odd
+                                 element offset)
   pallas scatter-add             its pallas_scatter: one thread per
                                  update, one 8-byte f32x2 reduction each
                                  (the TPU kernel's serial VMEM loop, in
@@ -67,7 +69,8 @@ def _check(idx: torch.Tensor, rows: torch.Tensor, what: str) -> None:
 def pallas_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx]: table (T, 2) f32, idx (M,) int32 -> (M, 2) f32; an
     index in [-T, 0) counts from the end, NaN for one outside [-T, T).
-    The CUDA kernel on CUDA tensors, its plain twin on CPU tensors."""
+    table and idx may be views at any element offset. The CUDA kernel on
+    CUDA tensors, its plain twin on CPU tensors."""
     _check(idx, table, "table")
     if not idx.is_cuda:
         return pallas_gather_plain(table, idx)
@@ -130,6 +133,23 @@ def make_inputs(n_rows: int = T, m: int = M, device="cuda") -> dict:
                              dtype=torch.int32).to(device),
         "vals": torch.randn((m, F), generator=gen(2)).to(device),
     }
+
+
+def edge_rows(n_rows: int) -> list:
+    """Indices at and past either end of an n_rows table: from the end
+    (-1, -T, -T/2 - 1) and outside it (-T - 1, T, T + 3)."""
+    return [-1, -n_rows, -n_rows - 1, n_rows, n_rows + 3,
+            -(n_rows // 2) - 1]
+
+
+def with_edges(x: dict, n_rows: int) -> dict:
+    """make_inputs' draw with the edge rows mixed into every third index
+    (the table and vals kept)."""
+    idx = x["idx"].clone()
+    k = idx[::3].numel()
+    rows = torch.tensor(edge_rows(n_rows), dtype=torch.int32)
+    idx[::3] = rows.repeat(k // len(rows) + 1)[:k].to(idx.device)
+    return {**x, "idx": idx}
 
 
 def _size(n: int) -> str:

@@ -560,6 +560,58 @@ def test_pallas_scatter_views_tails_outside_and_one_row(dev, case):
         assert bound[5].min() > 0 and (got[:5] == 0).all()
 
 
+GATHER_9A_CASES = ["tail", "M = 0", "M = 1", "M = 2", "M = 3", "M = 5",
+                   "idx at offset 1", "idx at offset 2", "idx at offset 3",
+                   "table at an odd offset", "one row", "edges"]
+
+
+def _gather_inputs(case: str, dev):
+    """table (2^19, 2) f32 and idx (m,) int32 of one case: m = 2^20 + 3
+    (the last block not filled) unless the case names m; idx views at element
+    offsets 1-3 (4-, 8- and 4-byte aligned); a table view at an odd
+    element offset (4-byte aligned only); every index on one row;
+    with_edges' draw."""
+    n_rows, m = 1 << 19, (1 << 20) + 3
+    if case.startswith("M = "):
+        m = int(case[4:])
+    x = tpg.make_inputs(n_rows, m + 3, dev)
+    table, idx = x["table"], x["idx"]
+    if case == "edges":
+        idx = tpg.with_edges(x, n_rows)["idx"]
+    if case == "one row":
+        idx = torch.full_like(idx, 5)
+    if case.startswith("idx at offset"):
+        k = int(case[-1])
+        return table, idx[k:k + m]
+    if case == "table at an odd offset":
+        words = torch.empty(2 * n_rows + 1, device=dev)
+        table = words[1:].view(n_rows, 2)
+        table.copy_(x["table"])
+        assert table.data_ptr() % 8 == 4
+    return table, idx[:m]
+
+
+@pytest.mark.parametrize("case", GATHER_9A_CASES)
+def test_pallas_gather_views_tails_edges_and_one_row(dev, case):
+    """pallas_gather bit-equal to its twin (int32 words, NaN bits
+    included) on M = 2^20 + 3 and on a few rows, idx views at element
+    offsets 1-3, a table that is 4- but not 8-byte aligned (its rows then
+    read with two 4-byte loads), every index on one row and the edge
+    draw (rows from the end and outside the table); one launch counted a
+    call."""
+    table, idx = _gather_inputs(case, dev)
+    assert idx.is_contiguous() and table.is_contiguous()
+    before = kernels.launch_counts["pallas_gather"]
+    got = tpg.pallas_gather(table, idx)
+    assert kernels.launch_counts["pallas_gather"] == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (idx.shape[0], 2)
+    assert torch.equal(got.view(torch.int32), tpg.pallas_gather_plain(
+        table, idx).view(torch.int32))
+    if case == "edges":
+        assert got.isnan().any() and not got.isnan().all()
+
+
 def test_get_rays_on_the_card_equals_the_cpu(dev):
     """The ray directions are written-out dot products, so the card
     computes the CPU's bits (a batched matmul would round them

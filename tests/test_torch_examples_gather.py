@@ -316,6 +316,29 @@ def test_plain_twins_take_rows_outside_the_table_as_the_kernels_do():
         np.asarray(jnp.take(jnp.asarray(table), neg, axis=0)))
 
 
+def test_gather_edge_draw_mixes_every_edge_and_twin_takes_it_as_jnp():
+    """proto_pallas_gather.with_edges (kernel 9a's edge draw in the card
+    tests and chip_smoke.py) keeps the table and vals and puts every edge
+    row among the random indices; the twin gathers that draw as
+    jnp.take(table, idx, axis=0) does, bit for bit (NaN outside
+    [-T, T))."""
+    x = tpg.make_inputs(T, M, "cpu")
+    e = tpg.with_edges(x, T)
+    assert e["table"] is x["table"] and e["vals"] is x["vals"]
+    idx = e["idx"]
+    assert set(tpg.edge_rows(T)) <= set(idx.tolist())
+    assert len(set(idx[::3].tolist())) == len(tpg.edge_rows(T))
+    for k in (1, 2):
+        assert torch.equal(idx[k::3], x["idx"][k::3])
+    got = tpg.pallas_gather(x["table"], idx).numpy()
+    ref = np.asarray(jnp.take(jnp.asarray(x["table"].numpy()),
+                              jnp.asarray(idx.numpy()), axis=0))
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    outside = (idx < -T) | (idx >= T)
+    assert np.isnan(got[outside.numpy()]).all()
+    assert not np.isnan(got[~outside.numpy()]).any()
+
+
 def test_cpu_calls_launch_no_kernel():
     tbl, flat, rows = _words(2)
     table, idx, vals = _rows(2)
