@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Rad-NeRF MoE render and training, and its
-examples' microbenchmark kernels, on one NVIDIA GPU.
+"""Drive the PyTorch port's Rad-NeRF MoE render and training, its
+examples' microbenchmark kernels, and its train_ml.py entry point on a
+scene on disk, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -75,9 +76,29 @@ CPU fallback):
      kernel and library call without host gaps (CUDA graphs); then
      profile_step at its defaults (the dedup step split into its
      parts);
-  9. a JSON line with every kernel's check, launches (per phase), times
+  9. the entry point, as a user runs it: a Tanks-and-Temples-layout NSVF
+     scene (4x4 intrinsics.txt at 1920x1080, bbox.txt, pose/*.txt) of
+     phase 5's emissive sphere, 48 training and 4 test views at
+     downsample 0.1 (192x108), written as PNGs by the port's codec into
+     a temporary directory (which also holds the run's logs/, ckpts/
+     and results/), read back by the loader (the decoder is printed);
+     the untrained system validated once; then
+     radnerf_tpu_torch.train_ml.main with rad_TAT.sh's ZOO=2 options
+     (T=2^19, batch 8192, lr 1e-2, cv 1e-2, depth-mutual 5e-3, brick3)
+     for ENTRY_EPOCHS epochs of ENTRY_STEPS steps (cut from 20 x 1000):
+     two full checkpoints, a slim one, validation PNGs, metrics.jsonl,
+     and a test PSNR 3 dB above the untrained one; main again with one
+     more epoch and --resume auto, which must resume at step 256 and
+     write epoch=2.ckpt; radnerf_tpu_torch.oracle.main renders the test
+     split from it, within 1e-3 dB of that validation; then one 256-ray
+     chunk of a test view from the checkpoint on the card and on the CPU
+     (plain versions), within phase 4's tolerance. Launch counts are
+     reset just before the untrained system and read after the CPU
+     chunk (brick3_table_grad exactly 4 per step); the phase's seconds,
+     median train rays/s and the nvidia-smi line are printed;
+ 10. a JSON line with every kernel's check, launches (per phase), times
      and bound;
- 10. the last line: {"ok": true, "device": {...}}.
+ 11. the last line: {"ok": true, "device": {...}}.
 
 Phase 4 also renders 256 rays with hash_impl 'dedup' on the card and on
 the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
@@ -88,14 +109,18 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import radnerf_tpu_torch.render.ml_render as ml_render_mod
-from radnerf_tpu_torch import kernels
+from radnerf_tpu_torch import kernels, oracle, train_ml
+from radnerf_tpu_torch.data.png import write_png
+from radnerf_tpu_torch.data.ray_utils import get_ray_directions
 from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
 from radnerf_tpu_torch.examples import profile_step
 from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
@@ -138,8 +163,10 @@ from radnerf_tpu_torch.parallel.step import (
     microbatched_value_and_grad, tree_leaves, tree_paths, tree_unflatten,
 )
 from radnerf_tpu_torch.render.ml_render import get_rays, render_rays_chunked
+from radnerf_tpu_torch.opt import get_opts
 from radnerf_tpu_torch.render.render import NEAR_DISTANCE, RenderConfig
 from radnerf_tpu_torch.train import trainer as tt
+from radnerf_tpu_torch.utils.ckpt import load_ckpt
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32, outside the tensor cores
@@ -212,6 +239,20 @@ PIN_SEEDS = tuple(range(10, 58))
 FAMILY_STEPS = 48               # slab, brick, pallas: 3 warmup updates
 WIDE_ROWS = 8192                # phase 8: a table above the staged limit
 # hash family -> its table-gradient kernel
+# phase 9, the entry point: a Tanks-and-Temples-layout NSVF scene of the
+# emissive sphere (48 training and 4 test views at downsample 0.1 of
+# 1920x1080), trained by train_ml with rad_TAT.sh's ZOO=2 options for
+# ENTRY_EPOCHS epochs of ENTRY_STEPS steps, then resumed for one more
+ENTRY_VIEWS, ENTRY_TEST_EVERY = 52, 13     # views 6, 19, 32, 45: test
+ENTRY_FOCAL = 1500.0                       # pixels at 1920x1080
+ENTRY_EPOCHS, ENTRY_STEPS = 2, 128
+ENTRY_ARGS = ("--dataset_type", "nsvf", "--dataset_name", "TanksAndTemple",
+              "--scene_name", "Sphere", "--downsample", "0.1",
+              "--scale", "0.5", "--model_zoo_size", "2", "--gate_type",
+              "ray", "--batch_size", "8192", "--lr", "1e-2",
+              "--cv_loss_w", "1e-2", "--depth_mutual_loss_w", "5e-3",
+              "--hash_impl", "brick3", "--hash_table_size", "19",
+              "--steps_per_epoch", str(ENTRY_STEPS))
 FAMILY_KERNELS = {"brick3": "brick3_table_grad",
                   "dedup": "tcnn_table_grad", "slab": "slab_table_grad",
                   "brick": "brick_table_grad", "pallas": "tcnn_table_grad"}
@@ -338,10 +379,9 @@ def profile_call(render, label: str = f"one {CHUNK}-ray chunk") -> dict:
             "kernels": launches}
 
 
-def sphere_store(n_img: int, side: int, device) -> dict:
-    """The ray store of the training phase: n_img cameras on a shell of
-    radius 1.2 (a Fibonacci spiral), each looking at the origin through
-    the same side x side pinhole directions."""
+def shell_poses(n_img: int) -> np.ndarray:
+    """(n_img, 3, 4) camera-to-world poses on a shell of radius 1.2 (a
+    Fibonacci spiral), each looking at the origin."""
     i = np.arange(n_img) + 0.5
     z = 1.0 - 2.0 * i / n_img
     phi = np.pi * (1.0 + 5.0**0.5) * i
@@ -356,12 +396,18 @@ def sphere_store(n_img: int, side: int, device) -> dict:
         down = np.cross(fwd, right)
         poses.append(np.concatenate(
             [np.stack([right, down, fwd], axis=1), eye[:, None]], axis=1))
+    return np.stack(poses)
+
+
+def sphere_store(n_img: int, side: int, device) -> dict:
+    """The ray store of the training phase: shell_poses(n_img), each
+    camera looking through the same side x side pinhole directions."""
     u, v = np.meshgrid((np.arange(side) + 0.5) / side - 0.5,
                        (np.arange(side) + 0.5) / side - 0.5)
     dirs = np.stack([u, v, np.full_like(u, 1.2)], -1).reshape(-1, 3)
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     return {
-        "poses": torch.tensor(np.stack(poses), dtype=torch.float32,
+        "poses": torch.tensor(shell_poses(n_img), dtype=torch.float32,
                               device=device),
         "directions": torch.tensor(dirs, dtype=torch.float32, device=device),
     }
@@ -1545,6 +1591,195 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
     return report
 
 
+def write_tanks_scene(parent: str, cfg: MNGPConfig, dev) -> str:
+    """Phase 9's scene on disk, in the NSVF layout of a Tanks and Temples
+    scene (the loader's 'Tanks' branch: a 4x4 intrinsics.txt at
+    1920x1080, bbox.txt, rgb/{0,1}_*.png, pose/{0,1}_*.txt): the views of
+    render_sphere's emissive sphere from shell_poses, at 192x108, written
+    with the port's PNG codec. bbox [-1, 1]^3 makes the loader's
+    normalized poses shell_poses' (world = normalized x 2.1)."""
+    root = os.path.join(parent, "TanksAndTemple", "Sphere")
+    for sub in ("rgb", "pose"):
+        os.makedirs(os.path.join(root, sub))
+    k_full = np.array([[ENTRY_FOCAL, 0, 960], [0, ENTRY_FOCAL, 540],
+                       [0, 0, 1]], np.float32)
+    k = k_full.copy()
+    k[:2] *= 0.1
+    w, h = 192, 108
+    np.savetxt(os.path.join(root, "intrinsics.txt"),
+               np.pad(k_full, ((0, 1), (0, 1))) + np.diag([0, 0, 0, 1]))
+    np.savetxt(os.path.join(root, "bbox.txt"),
+               [[-1.0, -1.0, -1.0, 1.0, 1.0, 1.0, 0.01]])
+    poses = shell_poses(ENTRY_VIEWS)
+    store = {"poses": torch.tensor(poses, dtype=torch.float32, device=dev),
+             "directions": torch.from_numpy(
+                 get_ray_directions(h, w, k)).to(dev)}
+    imgs = (render_sphere(store, cfg).clamp(0, 1) * 255 + 0.5).to(
+        torch.uint8).reshape(ENTRY_VIEWS, h, w, 3).cpu().numpy()
+    counts = [0, 0]
+    for i, (img, pose) in enumerate(zip(imgs, poses)):
+        split = int(i % ENTRY_TEST_EVERY == ENTRY_TEST_EVERY // 2)
+        name = f"{split}_{counts[split]:04d}"
+        counts[split] += 1
+        write_png(os.path.join(root, "rgb", name + ".png"), img)
+        c2w = pose.copy()
+        c2w[:, 3] *= 2.1
+        np.savetxt(os.path.join(root, "pose", name + ".txt"),
+                   np.vstack([c2w, [0, 0, 0, 1]]))
+    check(counts == [48, 4], f"scene split {counts}")
+    return root
+
+
+def entry_args(root: str, exp: str, *extra) -> list:
+    return ["--root_dir", root, "--exp_name", exp, *ENTRY_ARGS, *extra]
+
+
+def step_timer(secs: list):
+    """on_step for train_ml.main: each step's wall time, the step ended
+    by a synchronize."""
+    last = [time.perf_counter()]
+
+    def on_step(step, loss, aux):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs.append(now - last[0])
+        last[0] = now
+
+    return on_step
+
+
+def entry_phase(cfg: MNGPConfig, dev, smi: str) -> tuple:
+    """Phase 9: the train_ml.py entry point on a scene on disk (see the
+    module docstring). Returns (launch counts of the phase, summary)."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        root = write_tanks_scene(tmp, cfg, dev)
+        cwd = os.getcwd()
+        os.chdir(tmp)          # logs/, ckpts/, results/ go under tmp
+        try:
+            summary = entry_runs(root, dev)
+        finally:
+            os.chdir(cwd)
+    summary["seconds"] = time.perf_counter() - t_phase
+    launches = summary.pop("launches")
+    print(f"[entry] {summary['seconds']:.1f} s in all; train rays/s median "
+          f"{summary['rays_per_s']:.0f} (steps after the first 16 of each "
+          f"run); launches {launches}; {smi}")
+    return launches, summary
+
+
+def entry_runs(root: str, dev) -> dict:
+    run = os.path.join("TanksAndTemple", "Sphere")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+
+    # the untrained system, validated once
+    h = get_opts(entry_args(root, "untrained"))
+    h.moe_training = True
+    untrained = tt.NeRFSystem(h, device=dev)
+    untrained.setup()
+    decoder = untrained.train_dataset.decoder
+    psnr0 = untrained.validate(epoch=0)["psnr"]
+    untrained.close()
+    del untrained
+    print(f"[entry] scene read back by the '{decoder}' decoder; untrained "
+          f"test PSNR {psnr0:.3f} dB")
+
+    # train ENTRY_EPOCHS epochs
+    secs = [[], []]
+    trained = train_ml.main(entry_args(root, "smoke", "--num_epochs",
+                                       str(ENTRY_EPOCHS)),
+                            device=dev, on_step=step_timer(secs[0]))
+    trained.close()
+    del trained
+    ckpts = os.path.join("ckpts", run, "smoke")
+    for name in ("epoch=0.ckpt", "epoch=1.ckpt", "epoch=1_slim.ckpt"):
+        check(os.path.exists(os.path.join(ckpts, name)), f"no {name}")
+    pngs = sorted(os.listdir(os.path.join("results", run, "smoke")))
+    check(pngs == [f"{i:03d}epoch1{d}.png" for i in range(4)
+                   for d in ("", "_d")], f"validation images {pngs}")
+    with open(os.path.join("logs", run, "smoke", "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    psnr1 = [m["value"] for m in metrics if m["tag"] == "test/psnr"][-1]
+    n1 = ENTRY_EPOCHS * ENTRY_STEPS
+    print(f"[entry] {n1} steps: test PSNR {psnr0:.3f} -> {psnr1:.3f} dB")
+    check(psnr1 >= psnr0 + 3.0, f"test psnr {psnr0} -> {psnr1}")
+    check(len(secs[0]) == n1, f"{len(secs[0])} steps")
+
+    # resume for one more epoch
+    resumed = train_ml.main(entry_args(root, "smoke", "--num_epochs",
+                                       str(ENTRY_EPOCHS + 1), "--resume",
+                                       "auto"),
+                            device=dev, on_step=step_timer(secs[1]))
+    resumed.close()
+    del resumed
+    n2 = (ENTRY_EPOCHS + 1) * ENTRY_STEPS
+    with open(os.path.join("logs", run, "smoke", "log.txt")) as f:
+        log = f.read()
+    last_ckpt = os.path.join(ckpts, f"epoch={ENTRY_EPOCHS}.ckpt")
+    check(f"epoch={ENTRY_EPOCHS - 1}.ckpt at step {n1}" in log
+          and len(secs[1]) == ENTRY_STEPS
+          and int(load_ckpt(last_ckpt)["step"]) == n2,
+          f"the resumed run did not continue at step {n1}")
+    with open(os.path.join("logs", run, "smoke", "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    psnr2 = [m["value"] for m in metrics
+             if m["tag"] == "test/psnr" and m["step"] == n2][-1]
+
+    # the oracle renders the test split from the last checkpoint
+    got = oracle.main(entry_args(root, "oracle", "--moe_training",
+                                 "--ckpt_path", last_ckpt), device=dev)
+    print(f"[entry] resumed at step {n1}, epoch {ENTRY_EPOCHS} validated "
+          f"at {psnr2:.6f} dB; the oracle's render {got['psnr']:.6f} dB")
+    check(abs(got["psnr"] - psnr2) <= 1e-3, "oracle psnr")
+
+    # one 256-ray chunk of test view 0 from the checkpoint, card vs CPU
+    systems = []
+    for device in (dev, "cpu"):
+        h = get_opts(entry_args(root, "vs_cpu", "--val_chunk",
+                                str(CPU_RAYS)))
+        h.moe_training = True
+        system = tt.NeRFSystem(h, device=device)
+        system.setup()
+        system.resume(last_ckpt)
+        systems.append(system)
+    ds = systems[1].test_dataset
+    w, img_h = ds.img_wh
+    p0 = (img_h // 2) * w + (w - CPU_RAYS) // 2
+    outs = [s.render_view(
+        torch.from_numpy(ds.poses[0]).to(s.device),
+        torch.from_numpy(ds.directions[p0:p0 + CPU_RAYS]).to(s.device))
+        for s in systems]
+    diffs = {k: float((outs[0][k].cpu() - outs[1][k]).abs().max())
+             for k in CPU_TOL}
+    print(f"[entry] card vs CPU, {CPU_RAYS} rays of test view 0 from "
+          f"{last_ckpt}: max|diff| {diffs} (tolerance {CPU_TOL}); samples "
+          f"{outs[0]['total_samples']} vs {outs[1]['total_samples']}")
+    for k, tol in CPU_TOL.items():
+        check(diffs[k] <= tol, f"entry card vs CPU {k}: {diffs[k]} > {tol}")
+    check(outs[0]["total_samples"] == outs[1]["total_samples"],
+          "entry render: card and CPU marched different samples")
+    for s in systems:
+        s.close()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+
+    mb = tt.TrainConfig(batch_size=h.batch_size).n_microbatch
+    want = mb * n2
+    check(launches["brick3_table_grad"] == want,
+          f"brick3_table_grad launched {launches['brick3_table_grad']} "
+          f"times, expected {want} ({mb} microbatches x {n2} steps)")
+    for name in ("brick3_encode_fwd", "occ_lookup"):
+        check(launches[name] > want, f"{name} launched {launches[name]}")
+    rates = [h.batch_size / s for run_secs in secs for s in run_secs[16:]]
+    return {"launches": launches, "decoder": decoder,
+            "steps": n2, "psnr_untrained": psnr0, "psnr_trained": psnr1,
+            "psnr_resumed": psnr2, "psnr_oracle": got["psnr"],
+            "vs_cpu": diffs, "rays_per_s": float(np.median(rates)),
+            "rays_per_s_min": float(min(rates)),
+            "rays_per_s_max": float(max(rates))}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1711,9 +1946,13 @@ def main() -> None:
         dev)
     print(json.dumps({"profile_step_ms": profile_ms}))
 
-    # 9. kernels line: per kernel and contract, the launches of the path
+    # 9. the train_ml.py entry point on a scene on disk
+    phase_launches["entry"], summary_e = entry_phase(cfg, dev, smi)
+    print(json.dumps({"entry": summary_e}))
+
+    # 10. kernels line: per kernel and contract, the launches of the path
     # that runs it (its training phase, or the examples'; every phase's
-    # counts under launches_by_path); ms, plain, library and bound at a
+    # counts, the entry point's among them, under launches_by_path); ms, plain, library and bound at a
     # training step 0 microbatch, the shape of most launches (the
     # examples' kernels: at their scripts' default size); max_abs_err the
     # worst of every check, all in "checks"
@@ -1758,6 +1997,9 @@ def main() -> None:
     for key, name, source, replaces, contract, path in rows:
         n_launch = phase_launches[path][name]
         check(n_launch > 0, f"kernel {name} not launched on {path}")
+        if path == "train_brick3":       # rows 1-3: the entry point's too
+            check(phase_launches["entry"][name] > 0,
+                  f"kernel {name} not launched by the entry point")
         runs = train_checks.get(key, []) + [
             checks[key] for checks in (render_checks, example_checks)
             if key in checks]

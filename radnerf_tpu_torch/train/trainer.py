@@ -1,32 +1,52 @@
-"""Rad-NeRF MoE training on one device (twin of the training-step half of
-radnerf_tpu/train/trainer.py; the NeRFSystem shell, data loaders,
-logging, validation and checkpoints are queued in ROADMAP.md).
+"""Rad-NeRF MoE training on one device (twin of
+radnerf_tpu/train/trainer.py): the training step and its loop
+(`Trainer`), and `NeRFSystem`, the shell of the entry points
+(train_ml.py, oracle.py) around it: data, epochs, validation, logging
+and checkpoints.
 
 The step: gate, one union march, one shared hash encode (the family of
 `MNGPConfig.hash_impl` and `compute_dtype`), per-expert MLPs and flat
-compositing, nerf_loss, backward, Adam (eps 1e-15) at the
-cosine learning rate. Beside it the density grids are updated every 16
-steps (every cell below `warmup_steps`) and the flat-layout sample
-budget is re-picked from the measured buffer utilization (the
-reference's --adaptive_budget, on by default; the fixed budget comes
-with the NeRFSystem shell). Batches are drawn on the device from a device-resident ray
-store; the per-ray start jitter is drawn from a torch.Generator and
-travels in the batch.
+compositing, nerf_loss, backward, Adam (eps 1e-15) at the cosine
+learning rate. Beside it the density grids are updated every 16 steps
+(every cell below `warmup_steps`) and, with --adaptive_budget (the
+default), the flat-layout sample budget is re-picked from the measured
+buffer utilization. Batches are drawn on the device from a
+device-resident ray store; the per-ray start jitter is drawn from a
+torch.Generator and travels in the batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import math
+import os
+import re
+import time
 
+import numpy as np
 import torch
 
+from .. import DEFAULT_DEVICE
+from ..convert import (
+    adam_state_from_jax, adam_state_to_jax, load_adam_state, params_to_jax,
+    state_to_jax,
+)
+from ..data import dataset_dict
+from ..data.color_utils import depth2img, imwrite
 from ..losses import nerf_loss, total_loss
 from ..metrics import psnr as psnr_fn
-from ..models.mngp import MNGPConfig, mngp_update_density_grids
+from ..metrics import ssim as ssim_fn
+from ..models.gates import init_ray_gate
+from ..models.mngp import (
+    MNGPConfig, init_mngp, init_mngp_state, mngp_update_density_grids,
+)
+from ..ops.hashgrid import hash_family, resolve_impl
 from ..parallel.step import make_train_step, tree_leaves
-from ..render.ml_render import get_rays, ml_render_train
+from ..render.ml_render import get_rays, ml_render_train, render_rays_chunked
 from ..render.render import RenderConfig
+from ..utils.ckpt import load_ckpt, load_weights_into, save_ckpt, slim_ckpt
+from ..utils.logging import MetricWriter, init_global_logger
 
 MAX_SAMPLES = 1024
 UPDATE_INTERVAL = 16
@@ -84,6 +104,8 @@ class TrainConfig:
     distortion_loss_w: float = 0.0
     cv_loss_w: float = 1e-2
     depth_mutual_loss_w: float = 5e-3
+    random_bg: bool = False          # a random background per expert
+    adaptive_budget: bool = True     # re-pick the budget bucket
 
     @property
     def n_microbatch(self) -> int:
@@ -94,14 +116,17 @@ class TrainConfig:
 
 def render_config(cfg: MNGPConfig, tcfg: TrainConfig) -> RenderConfig:
     """The trainer's render settings: a constant-dt lattice and white
-    background at scale <= 0.5, the flat layout, and a union budget
-    governed by the bucket ladder (the adaptive budget: factor 1)."""
+    background at scale <= 0.5 (else black, or random with random_bg),
+    the flat layout, and a union budget governed by the bucket ladder
+    with the adaptive budget (factor 1), else K x budget_per_ray (factor
+    0: auto-K, so quality never depends on a controller)."""
     return RenderConfig(
         exp_step_factor=1 / 256 if cfg.scale > 0.5 else 0.0,
         samples_per_ray=tcfg.samples_per_ray,
+        random_bg=tcfg.random_bg,
         layout="flat",
         budget_per_ray=tcfg.budget_per_ray,
-        union_budget_factor=1.0,
+        union_budget_factor=1.0 if tcfg.adaptive_budget else 0.0,
     )
 
 
@@ -114,10 +139,12 @@ def lr_schedule(tcfg: TrainConfig, step: int) -> float:
 
 
 def loss_fn(bundle: dict, model_state: dict, batch: dict, data: dict,
-            cfg: MNGPConfig, rcfg: RenderConfig, tcfg: TrainConfig):
+            cfg: MNGPConfig, rcfg: RenderConfig, tcfg: TrainConfig,
+            gen: torch.Generator | None = None):
     """(loss, aux) of a batch {img_idxs, pix_idxs, noise} over the ray
     store `data` {rays, poses, directions, mean_dir}; bundle {model,
-    gate}. aux: psnr, rm_samples, budget_util."""
+    gate}; `gen` draws the random backgrounds (rcfg.random_bg). aux:
+    psnr, rm_samples, budget_util."""
     poses = data["poses"][batch["img_idxs"]]
     rays_o, rays_d = get_rays(data["directions"][batch["pix_idxs"]], poses)
     imgs_d = get_rays(data["mean_dir"].expand(poses.shape[0], 3), poses)[1]
@@ -125,7 +152,7 @@ def loss_fn(bundle: dict, model_state: dict, batch: dict, data: dict,
     out = ml_render_train(
         bundle["model"], model_state, cfg, bundle["gate"],
         rays_o.contiguous(), rays_d.contiguous(), imgs_d, rcfg,
-        tcfg.gate_type, noise=batch["noise"],
+        tcfg.gate_type, noise=batch["noise"], gen=gen,
     )
     ld = nerf_loss(
         out, target,
@@ -178,7 +205,7 @@ class Trainer:
         self.last_budget_util = None
         self._step = make_train_step(
             lambda b, s, batch, d: loss_fn(b, s, batch, d, self.cfg,
-                                           self.rcfg, self.tcfg),
+                                           self.rcfg, self.tcfg, self.gen),
             self.optimizer, tcfg.n_microbatch,
         )
 
@@ -209,18 +236,415 @@ class Trainer:
     def fit_steps(self, n_steps: int, on_step=None) -> None:
         """The inner loop of the reference's fit: a grid update every
         UPDATE_INTERVAL steps (all cells below warmup_steps), the
-        adaptive budget at grid-update boundaries, a batch, a step.
-        `on_step(step, loss, aux)` sees every step's (device) results."""
+        adaptive budget at grid-update boundaries (with
+        tcfg.adaptive_budget), a batch, a step. `on_step(step, loss,
+        aux)` sees every step's (device) results."""
+        adaptive = self.tcfg.adaptive_budget
         for _ in range(n_steps):
             step = self.global_step
             if step % UPDATE_INTERVAL == 0:
                 self.update_grid(warmup=step < self.tcfg.warmup_steps)
-                if step >= self.tcfg.warmup_steps:
+                if adaptive and step >= self.tcfg.warmup_steps:
                     self.maybe_adapt_budget()
             batch = sample_batch(self.gen, self.data, self.tcfg.batch_size)
             loss, aux = self.train_step(batch)
-            if step % UPDATE_INTERVAL == UPDATE_INTERVAL - 1:
+            if adaptive and step % UPDATE_INTERVAL == UPDATE_INTERVAL - 1:
                 # one host read, right before the next grid update
                 self.last_budget_util = float(aux["budget_util"])
             if on_step is not None:
                 on_step(step, loss, aux)
+
+
+def refuse_unported(h) -> None:
+    """NotImplementedError naming every flag of `h` whose path the port
+    has not ported, with its ROADMAP.md item."""
+    refused = [
+        msg for cond, msg in (
+            (not getattr(h, "moe_training", False),
+             "non-MoE training (train.py's single NGP field; queue 1, "
+             "item 5)"),
+            (h.layout == "dense", "--layout dense (queue 1, item 5)"),
+            (h.optimize_ext, "--optimize_ext (queue 1, item 2)"),
+            (h.num_devices > 1, "--num_devices > 1 (queue 1, item 5: "
+                                "parallel/)"),
+            (h.multihost, "--multihost (queue 1, item 5: parallel/)"),
+            (h.host_sampling, "--host_sampling (queue 1, item 4)"),
+            (h.ckpt_backend == "orbax",
+             "--ckpt_backend orbax (queue 1, item 3)"),
+        ) if cond
+    ]
+    if refused:
+        raise NotImplementedError(
+            "not ported yet (ROADMAP.md): " + "; ".join(refused))
+
+
+class NeRFSystem:
+    """The training system of the entry points (twin of radnerf_tpu's
+    NeRFSystem, train_ml.py's MoE path) on `device`: it reads the scene
+    from disk, keeps the ray store on the device, and drives a `Trainer`
+    (which owns the step) through epochs with validation, logging and
+    checkpoints. Logs, checkpoints and validation images go under
+    logs/, ckpts/ and results/<dataset_name>/<scene_name>/<exp_name> in
+    the working directory, as in the reference."""
+
+    def __init__(self, hparams, device=DEFAULT_DEVICE):
+        refuse_unported(hparams)
+        self.h = h = hparams
+        self.device = torch.device(device)
+        run = f"{h.dataset_name}/{h.scene_name}/{h.exp_name}"
+        self.logger = init_global_logger(f"logs/{run}/log.txt")
+        self.writer = MetricWriter(f"logs/{run}")
+        self.ckpt_dir = f"ckpts/{run}"
+        self.val_dir = f"results/{run}"
+        self.cfg = MNGPConfig(
+            scale=h.scale, log2_T=h.hash_table_size,
+            n_experts=h.model_zoo_size, compute_dtype=h.compute_dtype,
+            hash_impl=h.hash_impl,
+        )
+        self.trainer = None
+
+    # ------------------------------------------------------------------
+    def setup(self) -> None:
+        h = self.h
+        kwargs = {"root_dir": h.root_dir, "downsample": h.downsample,
+                  "num_view": h.num_view}
+        self.train_dataset = dataset_dict[h.dataset_type](
+            split=h.split, **kwargs)
+        self.test_dataset = dataset_dict[h.dataset_type](
+            split="test", **kwargs)
+        self.logger.info(
+            f"train dataset: {len(self.train_dataset.poses)} images, "
+            f"img_wh={self.train_dataset.img_wh}, images read by "
+            f"{self.train_dataset.decoder}, device={self.device}")
+        self.tcfg = TrainConfig(
+            lr=h.lr, num_epochs=h.num_epochs,
+            steps_per_epoch=(h.steps_per_epoch
+                             or self.train_dataset.STEPS_PER_EPOCH),
+            batch_size=h.batch_size, microbatch=h.microbatch,
+            warmup_steps=h.warmup_steps, samples_per_ray=h.samples_per_ray,
+            budget_per_ray=h.budget_per_ray, gate_type=h.gate_type,
+            opacity_loss_w=h.opacity_loss_w,
+            distortion_loss_w=h.distortion_loss_w, cv_loss_w=h.cv_loss_w,
+            depth_mutual_loss_w=h.depth_mutual_loss_w,
+            random_bg=h.random_bg, adaptive_budget=h.adaptive_budget,
+        )
+        if self.tcfg.n_microbatch > 1:
+            self.logger.info(
+                f"microbatch: batch {h.batch_size} -> "
+                f"{self.tcfg.n_microbatch} accumulation slices")
+        self.configure_model()
+
+    def configure_model(self) -> None:
+        """Weights from the seed (or --weight_path), empty grids, and the
+        Trainer with its Adam and its draws' generator."""
+        h, dev = self.h, self.device
+        gen = torch.Generator().manual_seed(h.seed)
+        params = init_mngp(gen, self.cfg, device=dev)
+        gate = init_ray_gate(gen, self.cfg.n_experts, device=dev)
+        if h.weight_path:
+            params = load_weights_into(params, h.weight_path)
+            self._reconcile_hash_impl(load_ckpt(h.weight_path))
+            self.logger.info(f"warm-started weights from {h.weight_path}")
+        ds = self.train_dataset
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        data = {"rays": put(ds.rays), "poses": put(ds.poses),
+                "directions": put(ds.directions)}
+        self.trainer = Trainer(
+            self.cfg, self.tcfg, params, gate,
+            init_mngp_state(self.cfg, device=dev), data,
+            torch.Generator(device=dev).manual_seed(h.seed + 1))
+
+    def lr_schedule(self, step: int) -> float:
+        """The cosine schedule (train_ml.py:148-151) at `step`."""
+        return lr_schedule(self.tcfg, step)
+
+    @property
+    def global_step(self) -> int:
+        return self.trainer.global_step
+
+    @property
+    def params(self) -> dict:
+        return self.trainer.bundle["model"]
+
+    @property
+    def gate_params(self) -> dict:
+        return self.trainer.bundle["gate"]
+
+    @property
+    def model_state(self) -> dict:
+        return self.trainer.model_state
+
+    # ------------------------------------------------------------------
+    def fit(self, on_step=None) -> None:
+        """Train from the first incomplete epoch to --num_epochs: a
+        validation every min(num_epochs, 10) epochs and at the last, a
+        checkpoint per epoch, a log line and metrics every 100 steps,
+        then the slim export. `on_step(step, loss, aux)` is called after
+        every step."""
+        h = self.h
+        spe = self.tcfg.steps_per_epoch
+        check_every = min(h.num_epochs, 10)         # train_ml.py:296
+        t_start = time.time()
+        rays_done = 0
+        prof = None
+
+        def after_step(step, loss, aux):
+            nonlocal rays_done, prof
+            rays_done += h.batch_size
+            if h.profile_steps and step == 9:
+                prof = self._start_profile()
+            elif prof is not None and step == 9 + h.profile_steps:
+                self._stop_profile(prof)
+                prof = None
+            if step % 100 == 0:
+                loss_v, psnr_v = float(loss), float(aux["psnr"])
+                rate = rays_done / (time.time() - t_start)
+                self.writer.scalar("lr", self.lr_schedule(step), step)
+                self.writer.scalar("train/loss", loss_v, step)
+                self.writer.scalar("train/psnr", psnr_v, step)
+                self.writer.scalar("train/rays_per_s", rate, step)
+                self.logger.info(
+                    f"epoch {step // spe} step {step}: loss={loss_v:.5f} "
+                    f"psnr={psnr_v:.2f} rays/s={rate:,.0f}")
+            if on_step is not None:
+                on_step(step, loss, aux)
+
+        for epoch in range(self.global_step // spe, h.num_epochs):
+            self.trainer.fit_steps(spe, after_step)
+            if (epoch + 1) % check_every == 0 or epoch == h.num_epochs - 1:
+                self.validate(epoch)
+            self.save_checkpoint(epoch)
+        if prof is not None:
+            self._stop_profile(prof)
+        self.export_slim(h.num_epochs - 1)
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        self.logger.info(f"profiler trace of {self.h.profile_steps} steps "
+                         f"from step 10")
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        prof.stop()
+        trace_dir = os.path.join(self.writer.logdir, "trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        self.logger.info(f"profiler trace -> {path}")
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def render_view(self, pose: torch.Tensor,
+                    directions: torch.Tensor) -> dict:
+        """Test-time render of camera-frame `directions` (P, 3) from
+        `pose` (3, 4), in chunks of --val_chunk rays (render_rays_chunked):
+        rgb (P, 3), gated depth (P,), opacity (P,), total_samples."""
+        return render_rays_chunked(
+            self.params, self.model_state, self.cfg, self.gate_params,
+            directions, pose, self.trainer.rcfg, chunk=self.h.val_chunk,
+            gate_type=self.h.gate_type,
+            mean_dir=self.trainer.data["mean_dir"])
+
+    def validate(self, epoch: int) -> dict:
+        """Render every test camera; PSNR and SSIM (and LPIPS with
+        --eval_lpips) against the ground truth where there is one, on the
+        host; the prediction and its turbo depth as PNGs unless
+        --no_save_test. Returns {"psnr", "ssim"} (None without ground
+        truth)."""
+        h, ds = self.h, self.test_dataset
+        w, img_h = ds.img_wh
+        directions = torch.from_numpy(ds.directions).to(self.device)
+        save = not h.no_save_test
+        if save:
+            os.makedirs(self.val_dir, exist_ok=True)
+        psnrs, ssims, lpipss = [], [], []
+        for i, pose in enumerate(ds.poses):
+            out = self.render_view(torch.from_numpy(pose).to(self.device),
+                                   directions)
+            rgb_pred = out["rgb"].cpu().reshape(img_h, w, 3)
+            depth_pred = out["depth"].cpu().reshape(img_h, w).numpy()
+            if len(ds.rays) > 0:
+                rgb_gt = torch.from_numpy(ds.rays[i][:, :3]).reshape(
+                    img_h, w, 3)
+                psnrs.append(float(psnr_fn(rgb_pred, rgb_gt)))
+                ssims.append(float(ssim_fn(rgb_pred, rgb_gt)))
+                if h.eval_lpips:
+                    from ..metrics import lpips_vgg
+
+                    lpipss.append(lpips_vgg(rgb_pred, rgb_gt))
+            if save:
+                imwrite(os.path.join(self.val_dir, f"{i:03d}epoch{epoch}.png"),
+                        (rgb_pred.numpy() * 255).astype(np.uint8))
+                imwrite(
+                    os.path.join(self.val_dir, f"{i:03d}epoch{epoch}_d.png"),
+                    depth2img(depth_pred))
+        if psnrs:
+            step = self.global_step
+            self.writer.scalar("test/psnr", np.mean(psnrs), step)
+            self.writer.scalar("test/ssim", np.mean(ssims), step)
+            self.logger.info(f"test/psnr={np.mean(psnrs)}")
+            self.logger.info(f"test/ssim={np.mean(ssims)}")
+            if lpipss:
+                self.writer.scalar("test/lpips_vgg", np.mean(lpipss), step)
+                self.logger.info(f"test/lpips={np.mean(lpipss)}")
+        return {
+            "psnr": float(np.mean(psnrs)) if psnrs else None,
+            "ssim": float(np.mean(ssims)) if ssims else None,
+        }
+
+    # ------------------------------------------------------------------
+    def latest_checkpoints(self) -> list:
+        """Full checkpoints in this experiment's ckpt dir, newest epoch
+        first (slim exports excluded: they drop the optimizer state)."""
+        found = []
+        for p in glob.glob(os.path.join(self.ckpt_dir, "epoch=*.ckpt")):
+            m = re.match(r"epoch=(\d+)\.ckpt$", os.path.basename(p))
+            if m:
+                found.append((int(m.group(1)), p))
+        return [p for _, p in sorted(found, reverse=True)]
+
+    def auto_resume(self) -> bool:
+        """--resume auto: continue from the newest loadable checkpoint in
+        the experiment dir; a file that does not load (a torn write) is
+        skipped with a warning. False (a fresh start) when none loads."""
+        for path in self.latest_checkpoints():
+            try:
+                self.resume(path)
+                return True
+            except Exception as e:  # a torn or foreign file: try the next
+                self.logger.warning(
+                    f"auto-resume: could not load {path} ({e!r}); "
+                    "trying the previous checkpoint")
+        self.logger.info(
+            f"auto-resume: no usable checkpoint under {self.ckpt_dir}; "
+            "starting fresh")
+        return False
+
+    def resume(self, ckpt_path: str) -> None:
+        """Full resume (params, Adam state, grids, step) from a checkpoint
+        of either package. An Adam state that does not match the
+        parameters (another optimizer layout) is dropped: training goes
+        on with fresh Adam moments, as in the reference."""
+        ckpt = load_ckpt(ckpt_path)
+        tr = self.trainer
+        _copy_into(tr.bundle["model"], ckpt["params"], "params")
+        if "gate_params" in ckpt:
+            _copy_into(tr.bundle["gate"], ckpt["gate_params"], "gate_params")
+        tr.optimizer.state.clear()
+        if "opt_state" in ckpt:
+            try:
+                load_adam_state(tr.optimizer, tr.bundle,
+                                adam_state_from_jax(ckpt["opt_state"]))
+            except ValueError:
+                self.logger.info("resume: opt_state structure mismatch — "
+                                 "starting with fresh optimizer state")
+        if "model_state" in ckpt:
+            _copy_into(tr.model_state, ckpt["model_state"], "model_state")
+        tr.global_step = int(ckpt.get("step", 0))
+        self._reconcile_hash_impl(ckpt)
+        self.logger.info(f"resumed from {ckpt_path} at step "
+                         f"{self.global_step}")
+
+    def _reconcile_hash_impl(self, ckpt: dict) -> None:
+        """Route encode_dispatch to the hash family that TRAINED the
+        restored table (checkpoints record the resolved impl; a family
+        mismatch would decode garbage)."""
+        rec = (ckpt.get("hparams") or {}).get("resolved_hash_impl")
+        if rec is None:
+            return
+        rec = str(rec)
+        if hash_family(rec) == hash_family(self.cfg.hash_impl):
+            return
+        if (hash_family(rec) in ("slab", "brick", "brick3")
+                and self.cfg.cdtype != torch.bfloat16):
+            raise ValueError(
+                f"checkpoint was trained with the {hash_family(rec)} hash"
+                f" family ({rec}), which only supports --compute_dtype"
+                " bfloat16; refusing to decode it with"
+                f" compute_dtype={self.cfg.compute_dtype}")
+        self.logger.info(
+            f"checkpoint hash family '{hash_family(rec)}' ({rec}) != "
+            f"session family '{hash_family(self.cfg.hash_impl)}' — "
+            f"switching hash_impl to '{rec}' to match the trained table")
+        self.cfg = dataclasses.replace(self.cfg, hash_impl=rec)
+        if self.trainer is not None:
+            self.trainer.cfg = self.cfg
+
+    def save_checkpoint(self, epoch: int) -> None:
+        """epoch=<epoch>.ckpt in the JAX package's layout, recording the
+        RESOLVED hash impl (a table decodes only under its family)."""
+        hp = dict(vars(self.h))
+        hp["resolved_hash_impl"] = resolve_impl(self.cfg.hash_impl)
+        params, gate = params_to_jax(self.params, self.gate_params)
+        save_ckpt(os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt"), {
+            "params": params,
+            "gate_params": gate,
+            "opt_state": adam_state_to_jax(self.trainer.optimizer,
+                                           self.trainer.bundle),
+            "model_state": state_to_jax(self.model_state),
+            "step": self.global_step,
+            "hparams": hp,
+        })
+
+    def export_slim(self, epoch: int) -> None:
+        path = os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt")
+        if os.path.exists(path):
+            save_ckpt(os.path.join(self.ckpt_dir, f"epoch={epoch}_slim.ckpt"),
+                      slim_ckpt(path))
+        self.export_video()
+
+    def export_video(self) -> None:
+        """Stitch the last epoch's validation frames into rgb.mp4 /
+        depth.mp4 for synthetic NSVF scenes (train.py:331-340); skipped,
+        with a log line, where imageio or its ffmpeg backend is
+        missing."""
+        h = self.h
+        if (h.no_save_test or h.dataset_type != "nsvf"
+                or "Synthetic" not in str(h.root_dir)):
+            return
+        try:
+            import imageio.v2 as imageio
+        except ImportError:
+            self.logger.info("video export skipped (imageio is not "
+                             "installed)")
+            return
+        imgs = sorted(glob.glob(os.path.join(
+            self.val_dir, f"*epoch{h.num_epochs - 1}*.png"))) or sorted(
+            glob.glob(os.path.join(self.val_dir, "*.png")))
+        if not imgs:
+            return
+        for name, frames in (("rgb.mp4", imgs[::2]),
+                             ("depth.mp4", imgs[1::2])):
+            try:
+                imageio.mimsave(os.path.join(self.val_dir, name),
+                                [imageio.imread(p) for p in frames],
+                                fps=30, macro_block_size=1)
+            except (ValueError, OSError) as e:  # no ffmpeg backend etc.
+                self.logger.info(f"video export skipped ({e})")
+                return
+        self.logger.info(f"saved rgb.mp4/depth.mp4 to {self.val_dir}")
+
+    def close(self) -> None:
+        self.writer.close()
+
+
+@torch.no_grad()
+def _copy_into(dst, src, what: str) -> None:
+    """Copy the numpy tree `src` into the tensor tree `dst` in place
+    (ValueError, before any copy, where their leaves differ in number or
+    shape)."""
+    d, s = tree_leaves(dst), tree_leaves(src)
+    if len(d) != len(s) or any(tuple(a.shape) != tuple(np.shape(b))
+                               for a, b in zip(d, s)):
+        raise ValueError(f"checkpoint {what} do not match the model's")
+    for a, b in zip(d, s):
+        a.copy_(torch.from_numpy(np.array(b)).to(a.dtype))

@@ -1,0 +1,139 @@
+"""Checkpoint save / load / slim (twin of radnerf_tpu/utils/ckpt.py).
+
+A checkpoint is one pickle file of numpy arrays and plain Python values,
+in the JAX package's tree layout (`convert.params_to_jax`,
+`convert.state_to_jax`), so either package loads the other's:
+{params, gate_params, opt_state, model_state, step, hparams}. The port
+writes its Adam state as a plain {"count", "mu", "nu"} dict
+(`convert.adam_state_to_jax`); the JAX package writes optax's
+(ScaleByAdamState, ScaleByScheduleState) NamedTuples, which `load_ckpt`
+reads as stand-ins of the same names and fields, without importing optax.
+
+`load_ckpt` unpickles only numpy arrays, dtypes and those stand-ins, and
+refuses any other class a file names. The reference's orbax directories
+(--ckpt_backend orbax) are not read (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import pickle
+from typing import Any
+
+import numpy as np
+import torch
+
+# stand-ins for the optax states a JAX checkpoint pickles by name
+ScaleByAdamState = collections.namedtuple("ScaleByAdamState",
+                                          "count mu nu")
+ScaleByScheduleState = collections.namedtuple("ScaleByScheduleState",
+                                              "count")
+EmptyState = collections.namedtuple("EmptyState", "")
+_OPTAX = {c.__name__: c for c in (ScaleByAdamState, ScaleByScheduleState,
+                                  EmptyState)}
+_NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+                  "numpy.core.numeric", "numpy._core.numeric")
+_NUMPY_NAMES = ("ndarray", "dtype", "_reconstruct", "scalar", "_frombuffer")
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] == "optax" and name in _OPTAX:
+            return _OPTAX[name]
+        if module in _NUMPY_MODULES and name in _NUMPY_NAMES:
+            return super().find_class(module, name)
+        if module == "collections" and name == "OrderedDict":
+            return collections.OrderedDict
+        raise pickle.UnpicklingError(
+            f"a checkpoint holds numpy arrays and plain values; this one "
+            f"names {module}.{name}")
+
+
+def _to_numpy(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def save_ckpt(path: str, payload: dict) -> None:
+    """Write a single-file pickle checkpoint ATOMICALLY (a temporary file,
+    fsync, os.replace): a failed or interrupted save leaves nothing at
+    `path`, so --resume auto may trust any file it finds there. Tensors
+    become numpy arrays, tuples lists."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            pickle.dump(_to_numpy(payload), f, protocol=4)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_ckpt(path: str) -> dict:
+    """A checkpoint of either package (see the module docstring)."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is an orbax checkpoint directory (--ckpt_backend "
+            "orbax); the port reads single-file pickle checkpoints only "
+            "(ROADMAP.md queue 1)")
+    with open(path, "rb") as f:
+        return _Unpickler(f).load()
+
+
+def extract_model_state_dict(
+    ckpt: dict, model_name: str = "params", prune: tuple = ()
+) -> dict:
+    """Prefix-scoped extraction (utils/util.py:8-23): pull one submodule's
+    tree out of a full checkpoint, dropping pruned keys."""
+    sub = ckpt[model_name]
+    if prune:
+        sub = {k: v for k, v in sub.items() if k not in prune}
+    return sub
+
+
+def load_weights_into(params: dict, path: str, model_name: str = "params"):
+    """Partial warm start (utils/util.py:25-30): the leaves of `params`
+    (a tree of tensors) replaced by the checkpoint's where the path and
+    shape match (on the leaf's device, in the checkpoint's dtype);
+    mismatches are skipped silently."""
+    if not path:
+        return params
+    ckpt = load_ckpt(path)
+    src = ckpt.get(model_name, ckpt)
+
+    def merge(dst, s):
+        if isinstance(dst, dict) and isinstance(s, dict):
+            return {
+                k: merge(dst[k], s[k]) if k in s else dst[k] for k in dst
+            }
+        if isinstance(dst, list) and isinstance(s, list):
+            return [merge(d, x) for d, x in zip(dst, s)]
+        if (isinstance(s, np.ndarray)
+                and tuple(dst.shape) == tuple(s.shape)):
+            return torch.from_numpy(np.array(s)).to(dst.device)
+        return dst
+
+    return merge(params, src)
+
+
+def slim_ckpt(path: str, save_poses: bool = False) -> dict:
+    """Drop optimizer state, density grids and buffers; keep params (and
+    optionally optimized poses) — utils/util.py:33-43."""
+    ckpt = load_ckpt(path)
+    keep = {"params": ckpt["params"], "step": ckpt.get("step")}
+    if "gate_params" in ckpt:
+        keep["gate_params"] = ckpt["gate_params"]
+    if save_poses and "pose_params" in ckpt:
+        keep["pose_params"] = ckpt["pose_params"]
+    if "hparams" in ckpt:
+        keep["hparams"] = ckpt["hparams"]
+    return keep
