@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's Rad-NeRF MoE render and training, its
-examples' microbenchmark kernels, and its train_ml.py entry point on a
-scene on disk, on one NVIDIA GPU.
+examples' microbenchmark kernels, its train_ml.py entry point on a scene
+on disk, and every dataset loader of the launch scripts, on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -96,9 +97,36 @@ CPU fallback):
      reset just before the untrained system and read after the CPU
      chunk (brick3_table_grad exactly 4 per step); the phase's seconds,
      median train rays/s and the nvidia-smi line are printed;
- 10. a JSON line with every kernel's check, launches (per phase), times
+ 10. the datasets of the launch scripts, read back from scenes of phase
+     5's emissive sphere that the phase writes with the port's own codecs
+     into a temporary directory, each in its loader's layout, at the
+     model's full width (MNGP zoo=2, T=2^19, L=16, G=128, bf16, brick3),
+     batch 8192: three full runs through train_ml.main with their
+     scripts' options, DS_EPOCHS epochs of 64 or 96 steps (cut from 20 x
+     1000), each validated untrained and after training (test PSNR up by
+     more than 3 dB) and checkpointed: `nerfpp` (rad_tat.sh's M60 line,
+     scale 4, PNGs whose size the header gives, with --optimize_ext: the
+     pose corrections finite, nonzero and in the checkpoint) and `eyeful`
+     (rad_eyeful.sh's, scale 4; JPEGs at --downsample 0.25 instead of 1,
+     resized up 1.5x), both of phase 9's scene scaled 8x to the scale-4
+     box, cameras outside it; `scannet` (rad_scannet.sh's, scale 0.5; a
+     half-size sphere seen from cameras inside the box, JPEGs with a
+     24-pixel border, one pose inf, at --downsample 0.25 instead of 0.5,
+     written at two thirds of the training size and resized up); then
+     four short runs of DS_SHORT_STEPS steps and one validation (finite
+     losses): `nerf` (RGBA PNGs at 200x200, --downsample 0.25), `rtmv`
+     (a 'bricks' box, 108 frames at 48x48), `replica` and `mill19` (JPEGs
+     at 64x48; .pt metadata written with torch.save). --eval_lpips is
+     left out (no torchmetrics on the card's machine). Printed: why the
+     native decoder did not load or build, the host times of one
+     1296x968 4:2:0 JPEG decode and one 1248x920 -> 648x484
+     resize_linear, each loader's decoder, views and PSNRs, the full
+     runs' median train rays/s, the phase's launch counts (reset before
+     its first scene, read after its last run; brick3_table_grad exactly
+     4 per step), its seconds and the nvidia-smi line;
+ 11. a JSON line with every kernel's check, launches (per phase), times
      and bound;
- 11. the last line: {"ok": true, "device": {...}}.
+ 12. the last line: {"ok": true, "device": {...}}.
 
 Phase 4 also renders 256 rays with hash_impl 'dedup' on the card and on
 the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
@@ -110,15 +138,20 @@ import contextlib
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
 
 import radnerf_tpu_torch.render.ml_render as ml_render_mod
 from radnerf_tpu_torch import kernels, oracle, train_ml
+from radnerf_tpu_torch.data import native, png
+from radnerf_tpu_torch.data.color_utils import resize_linear
+from radnerf_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, write_jpeg
 from radnerf_tpu_torch.data.png import write_png
 from radnerf_tpu_torch.data.ray_utils import get_ray_directions
 from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
@@ -253,6 +286,20 @@ ENTRY_ARGS = ("--dataset_type", "nsvf", "--dataset_name", "TanksAndTemple",
               "--cv_loss_w", "1e-2", "--depth_mutual_loss_w", "5e-3",
               "--hash_impl", "brick3", "--hash_table_size", "19",
               "--steps_per_epoch", str(ENTRY_STEPS))
+# phase 10, the datasets of the launch scripts: the sphere's scenes in
+# each loader's layout; three full runs of DS_EPOCHS epochs (cut from 20
+# x 1000 steps; DS_FULL has each run's steps an epoch) and four short runs
+# of DS_SHORT_STEPS steps
+DS_CFG = {0.5: MNGPConfig(scale=0.5), 4.0: MNGPConfig(scale=4.0)}
+# at scale 4 the sphere and its cameras are phase 9's scaled to the box
+# (4 / 0.5): the unscaled sphere in the large box, its cameras inside or
+# outside it, left the test PSNR flat in 128-256 steps on an H100 (each
+# training view painted where only its own rays pass)
+BOX_SIZE = 8.0
+DS_VIEWS = 27                   # every 9th a test view: 24 train, 3 test
+DS_SCANNET, DS_EYEFUL = 0.25, 0.25       # --downsample (scripts: 0.5, 1)
+SCANNET_VIEWS, SCANNET_INF = 33, 5       # one pose inf: 30 train, 2 test
+DS_EPOCHS, DS_SHORT_STEPS = 2, 16
 FAMILY_KERNELS = {"brick3": "brick3_table_grad",
                   "dedup": "tcnn_table_grad", "slab": "slab_table_grad",
                   "brick": "brick_table_grad", "pallas": "tcnn_table_grad"}
@@ -379,13 +426,13 @@ def profile_call(render, label: str = f"one {CHUNK}-ray chunk") -> dict:
             "kernels": launches}
 
 
-def shell_poses(n_img: int) -> np.ndarray:
-    """(n_img, 3, 4) camera-to-world poses on a shell of radius 1.2 (a
+def shell_poses(n_img: int, radius: float = 1.2) -> np.ndarray:
+    """(n_img, 3, 4) camera-to-world poses on a shell of `radius` (a
     Fibonacci spiral), each looking at the origin."""
     i = np.arange(n_img) + 0.5
     z = 1.0 - 2.0 * i / n_img
     phi = np.pi * (1.0 + 5.0**0.5) * i
-    eyes = 1.2 * np.stack([np.sqrt(1 - z * z) * np.cos(phi),
+    eyes = radius * np.stack([np.sqrt(1 - z * z) * np.cos(phi),
                            np.sqrt(1 - z * z) * np.sin(phi), z], axis=1)
     poses = []
     for eye in eyes:
@@ -414,18 +461,30 @@ def sphere_store(n_img: int, side: int, device) -> dict:
 
 
 @torch.no_grad()
-def render_sphere(store: dict, cfg: MNGPConfig, chunk: int = 4096):
+def render_sphere(store: dict, cfg: MNGPConfig, chunk: int = 4096,
+                  background: float = 1.0, size: float = 1.0):
     """Target colours of every ray of the store: examples/smoke_e2e.py's
     emissive sphere (sigma 40 inside radius 0.3, colour (0.5 + x, 0.5 + y,
-    0.5 - z) clipped), rendered by the port's union march (a grid of the
-    sphere's cells, jitter 0.5) and training compositor, white
-    background. Returns (n_img, n_pix, 3)."""
+    0.5 - z) clipped), scaled by `size` (radius 0.3 size, sigma 40 / size,
+    colour of x / size), rendered by the port's union march (a grid of the
+    sphere's cells in every cascade of cfg.scale, jitter 0.5) and
+    training compositor, on a `background` grey level (white by default).
+    Returns (n_img, n_pix, 3)."""
     dev = store["directions"].device
     g = cfg.grid_size
     lin = (torch.arange(g, device=dev) + 0.5) / g * 2 - 1
     xx, yy, zz = torch.meshgrid(lin, lin, lin, indexing="ij")
-    occ = ((xx**2 + yy**2 + zz**2).sqrt() * cfg.scale < 0.32)[None, None]
-    mcfg = RenderConfig(samples_per_ray=512).march(cfg)
+    r = (xx**2 + yy**2 + zz**2).sqrt()
+    # cascade c spans [-s, s], s = min(2^(c-1), scale): a cell is occupied
+    # where the sphere may reach it
+    occ = torch.stack([
+        r * s < max(0.32 * size, 0.3 * size + 3**0.5 * s / g)
+        for s in (min(2.0 ** (c - 1), cfg.scale)
+                  for c in range(cfg.cascades))])[None]
+    # the trainer's lattice: constant steps up to scale 0.5, else growing
+    # with t (render_config), so that far cameras reach the sphere
+    mcfg = RenderConfig(samples_per_ray=512, exp_step_factor=(
+        1 / 256 if cfg.scale > 0.5 else 0.0)).march(cfg)
     n_img, n_pix = store["poses"].shape[0], store["directions"].shape[0]
     out = []
     for img in range(n_img):
@@ -437,19 +496,20 @@ def render_sphere(store: dict, cfg: MNGPConfig, chunk: int = 4096):
                                     torch.full((3,), cfg.scale, device=dev),
                                     NEAR_DISTANCE)
             m, member = march_rays_union_flat(
-                rays_o, rays_d, t1, t2, occ.expand(1, cfg.cascades, g, g, g),
-                mcfg, torch.full_like(t1, 0.5), budget_per_ray=256)
+                rays_o, rays_d, t1, t2, occ, mcfg, torch.full_like(t1, 0.5),
+                budget_per_ray=256)
             check(int(m["total"]) < m["ts"].shape[0],
                   "target render truncated rays")
             rid = m["ray_id"].long()
-            x = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
-            sigma = torch.where(x.norm(dim=1) < 0.3, 40.0, 0.0)
+            x = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid]) / size
+            sigma = torch.where(x.norm(dim=1) < 0.3, 40.0 / size, 0.0)
             color = torch.stack([0.5 + x[:, 0], 0.5 + x[:, 1],
                                  0.5 - x[:, 2]], 1).clamp(0, 1)
             res = composite_train_flat(sigma, color, m["deltas"], m["ts"],
                                        m["ray_id"], m["offsets"], m["cap"],
                                        member[0])
-            out.append(res["rgb"] + (1.0 - res["opacity"][:, None]))
+            out.append(res["rgb"]
+                       + background * (1.0 - res["opacity"][:, None]))
     return torch.cat(out).reshape(n_img, n_pix, 3)
 
 
@@ -1780,6 +1840,433 @@ def entry_runs(root: str, dev) -> dict:
             "rays_per_s_max": float(max(rates))}
 
 
+# ---------------------------------------------------------------- phase 10
+def sphere_images(poses: np.ndarray, k: np.ndarray, wh: tuple,
+                  cfg: MNGPConfig, dev, background: float,
+                  size: float = 1.0) -> np.ndarray:
+    """render_sphere's views (the sphere scaled by `size`) from (n, 3, 4)
+    poses through the pinhole `k` at wh = (w, h), as float32 (n, h, w, 3)
+    in [0, 1] on the host."""
+    w, h = wh
+    store = {"poses": torch.tensor(poses, dtype=torch.float32, device=dev),
+             "directions": torch.from_numpy(
+                 get_ray_directions(h, w, k)).to(dev)}
+    img = render_sphere(store, cfg, background=background,
+                        size=size).clamp(0, 1)
+    return img.reshape(len(poses), h, w, 3).cpu().numpy()
+
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    return (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+
+
+def pinhole(w: int, h: int, half_fov_deg: float = 32.0) -> np.ndarray:
+    f = w / 2 / np.tan(np.radians(half_fov_deg))
+    return np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+
+
+def homog(c2w: np.ndarray) -> np.ndarray:
+    return np.vstack([c2w, [0, 0, 0, 1]])
+
+
+def write_rgba_png(path: str, img: np.ndarray) -> None:
+    """uint8 (H, W, 4) as an 8-bit RGBA PNG (colour type 6, no filter)."""
+    h, w = img.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
+                         axis=1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(png.SIGNATURE + chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", w, h, 8, 6, 0, 0, 0)) + chunk(
+            b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def nerfpp_scene(parent: str, dev) -> str:
+    """rad_tat.sh's layout (NeRF++: {train,test}/rgb/*.png, pose/*.txt,
+    train/intrinsics/*.txt) of phase 9's scene scaled to the scale-4 box
+    (BOX_SIZE) on black: DS_VIEWS cameras at radius 1.2 x BOX_SIZE (every
+    9th a test view), PNGs at 192x144, whose size the loader reads from
+    the header."""
+    root = os.path.join(parent, "tat_intermediate_M60")
+    w, h = 192, 144
+    k = pinhole(w, h)
+    poses = shell_poses(DS_VIEWS, radius=1.2 * BOX_SIZE)
+    imgs = sphere_images(poses, k, (w, h), DS_CFG[4.0], dev, 0.0,
+                         size=BOX_SIZE)
+    counts = {"train": 0, "test": 0}
+    for i, (img, pose) in enumerate(zip(imgs, poses)):
+        split = "test" if i % 9 == 4 else "train"
+        for sub in ("rgb", "pose"):
+            os.makedirs(os.path.join(root, split, sub), exist_ok=True)
+        name = f"{counts[split]:05d}"
+        counts[split] += 1
+        write_png(os.path.join(root, split, "rgb", name + ".png"),
+                  to_uint8(img))
+        np.savetxt(os.path.join(root, split, "pose", name + ".txt"),
+                   homog(pose).reshape(1, 16))
+    os.makedirs(os.path.join(root, "train", "intrinsics"))
+    np.savetxt(os.path.join(root, "train", "intrinsics", "00000.txt"),
+               homog(np.pad(k, ((0, 0), (0, 1)))).reshape(1, 16))
+    return root
+
+
+def scannet_scene(parent: str, dev) -> str:
+    """rad_scannet.sh's layout (ScanNet: intrinsics.txt for 1296x968,
+    poses/*.txt, images/*.jpg with a 24-pixel border) of the sphere at
+    half size (radius 0.15) at scale 0.5 on white: SCANNET_VIEWS
+    cameras, one pose inf (the loader drops it), placed on a radius-18
+    shell so that the loader's cube normalization (camera box + 2 x 2.0)
+    brings them to ~0.45 from the sphere's centre, inside the scene box
+    as indoor cameras are. Each view is rendered at the training size
+    (1296x968 x DS_SCANNET), written at two thirds of it plus the
+    border, by the port's JPEG encoder, and resized up by the loader."""
+    root = os.path.join(parent, "scene0046")
+    os.makedirs(os.path.join(root, "poses"))
+    os.makedirs(os.path.join(root, "images"))
+    wf, hf = int(1296 * DS_SCANNET), int(968 * DS_SCANNET)
+    k_full = pinhole(1296, 968, half_fov_deg=50.0)
+    np.savetxt(os.path.join(root, "intrinsics.txt"),
+               homog(np.pad(k_full, ((0, 0), (0, 1)))))
+    poses = shell_poses(SCANNET_VIEWS, radius=18.0)
+    valid = np.ones(len(poses), bool)
+    valid[SCANNET_INF] = False
+    # the loader's normalization (data/scannet.py), on the valid poses
+    norm = poses[valid].copy()
+    lo, hi = norm[..., 3].min(0), norm[..., 3].max(0)
+    norm[..., 3] -= (lo + hi) / 2
+    norm[..., 3] /= (hi - lo).max() + 2 * 2.0
+    k = k_full.copy()
+    k[:2] *= DS_SCANNET
+    imgs = sphere_images(norm, k, (wf, hf), DS_CFG[0.5], dev, 1.0,
+                         size=0.5)
+    inner = (wf * 2 // 3, hf * 2 // 3)
+    j = 0
+    for i, pose in enumerate(poses):
+        c2w = homog(pose)
+        if not valid[i]:
+            c2w[:3] = np.inf
+        np.savetxt(os.path.join(root, "poses", f"{i:04d}.txt"), c2w)
+        small = resize_linear(imgs[j], inner)
+        j += int(valid[i])
+        write_jpeg(os.path.join(root, "images", f"{i:04d}.jpg"),
+                   to_uint8(np.pad(small, ((24, 24), (24, 24), (0, 0)),
+                                   mode="edge")), quality=95)
+    return root
+
+
+def eyeful_scene(parent: str, dev) -> str:
+    """rad_eyeful.sh's layout (Eyeful Tower: cameras.json KRT,
+    splits.json, images/*.jpg) of phase 9's scene scaled to the scale-4
+    box (BOX_SIZE) on black: DS_VIEWS cameras at radius 1.2 x BOX_SIZE,
+    written at 114x171 (cameras.json's width, so the loader's 684x1024 x
+    DS_EYEFUL frame is 1.5x larger) by the port's JPEG encoder, and
+    resized up by the loader."""
+    root = os.path.join(parent, "apartment")
+    os.makedirs(os.path.join(root, "images"))
+    wd, hd = 114, 171
+    wf, hf = int(684 * DS_EYEFUL), int(1024 * DS_EYEFUL)
+    k = pinhole(wf, hf)
+    k_disk = k.astype(np.float64).copy()
+    k_disk[:2] *= (wd / 684) / DS_EYEFUL       # the loader divides this out
+    poses = shell_poses(DS_VIEWS, radius=1.2 * BOX_SIZE)
+    imgs = sphere_images(poses, k, (wf, hf), DS_CFG[4.0], dev, 0.0,
+                         size=BOX_SIZE)
+    krt, split = [], {"train": [], "test": []}
+    for i, (img, pose) in enumerate(zip(imgs, poses)):
+        cam = f"cam{i:03d}"
+        split["test" if i % 9 == 4 else "train"].append(cam)
+        krt.append({"cameraId": cam, "width": wd, "height": hd,
+                    "K": k_disk.T.tolist(),
+                    "T": np.linalg.inv(homog(pose)).T.tolist()})
+        write_jpeg(os.path.join(root, "images", cam + ".jpg"),
+                   to_uint8(resize_linear(img, (wd, hd))), quality=95)
+    with open(os.path.join(root, "cameras.json"), "w") as f:
+        json.dump({"KRT": krt}, f)
+    with open(os.path.join(root, "splits.json"), "w") as f:
+        json.dump(split, f)
+    return root
+
+
+def nerf_scene(parent: str, dev) -> str:
+    """A Blender scene (transforms_{train,test}.json, RGBA PNGs at
+    200x200 for --downsample 0.25): 14 cameras at radius 4 in the
+    OpenGL convention, which the loader flips and brings to radius 1.5;
+    the sphere on white, its opacity the alpha."""
+    root = os.path.join(parent, "nerf_synthetic", "sphere")
+    angle = 2 * np.arctan(0.5 / 0.8)        # focal 0.8 x the width
+    poses = shell_poses(14, radius=4.0)
+    norm = poses.astype(np.float32).copy()      # data/nerf.py's frame
+    norm[:, :, 3] /= (np.linalg.norm(norm[:, :, 3], axis=1) / 1.5)[:, None]
+    f = 0.5 * 200 / np.tan(0.5 * angle)
+    k = np.array([[f, 0, 100], [0, f, 100], [0, 0, 1]], np.float32)
+    white = sphere_images(norm, k, (200, 200), DS_CFG[0.5], dev, 1.0)
+    black = sphere_images(norm, k, (200, 200), DS_CFG[0.5], dev, 0.0)
+    alpha = np.clip(1.0 - (white - black)[..., :1], 0, 1)
+    rgb = np.where(alpha > 0, black / np.maximum(alpha, 1e-6), 1.0)
+    for split, idx in (("train", range(12)), ("test", range(12, 14))):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i in idx:
+            gl = homog(poses[i])
+            gl[:3, 1:3] *= -1                  # right down front -> OpenGL
+            name = f"{split}/r_{i}"
+            write_rgba_png(os.path.join(root, name + ".png"), to_uint8(
+                np.concatenate([rgb[i], alpha[i]], axis=-1)))
+            frames.append({"file_path": name,
+                           "transform_matrix": gl.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": angle, "frames": frames}, f)
+    return root
+
+
+def rtmv_scene(parent: str, dev) -> str:
+    """An RTMV 'bricks' scene (per-frame *.json, images/*.png): 108
+    frames (0-99 train, 105-107 test) of the sphere on white at 48x48,
+    the scene box [-1, 1]^3, so that the loader's normalization (box
+    centre, x 1 / 2.1) brings the cameras at radius 2.52 to 1.2."""
+    root = os.path.join(parent, "rtmv_bricks", "scene")
+    os.makedirs(os.path.join(root, "images"))
+    k = pinhole(48, 48)
+    poses = shell_poses(108)
+    imgs = sphere_images(poses, k, (48, 48), DS_CFG[0.5], dev, 1.0)
+    for i, (img, pose) in enumerate(zip(imgs, poses)):
+        c2w = homog(pose)
+        c2w[:3, 3] *= 2.1
+        c2w[:3, 1:3] *= -1                      # the loader flips them back
+        meta = {"camera_data": {
+            "scene_center_3d_box": [0.0, 0.0, 0.0],
+            "scene_min_3d_box": [-1.0] * 3, "scene_max_3d_box": [1.0] * 3,
+            "intrinsics": {"fx": float(k[0, 0]), "fy": float(k[1, 1]),
+                           "cx": 24.0, "cy": 24.0},
+            "width": 48, "height": 48, "cam2world": c2w.T.tolist()}}
+        with open(os.path.join(root, f"{i:05d}.json"), "w") as f:
+            json.dump(meta, f)
+        write_png(os.path.join(root, "images", f"{i:05d}.png"),
+                  to_uint8(img))
+    return root
+
+
+def replica_scene(parent: str, dev) -> str:
+    """A Replica scene (transforms.json, images/*.jpg, poses/*.txt): 16
+    cameras at radius 1.2 (even ones train, odd ones test), the sphere
+    on white at 64x48, JPEGs by the port's encoder."""
+    root = os.path.join(parent, "replica", "room0")
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "poses"))
+    k = pinhole(64, 48)
+    with open(os.path.join(root, "transforms.json"), "w") as f:
+        json.dump({"w": 64, "h": 48, "fl_x": float(k[0, 0]),
+                   "fl_y": float(k[1, 1])}, f)
+    poses = shell_poses(16)
+    imgs = sphere_images(poses, k, (64, 48), DS_CFG[0.5], dev, 1.0)
+    for i, (img, pose) in enumerate(zip(imgs, poses)):
+        write_jpeg(os.path.join(root, "images", f"{i:04d}.jpg"),
+                   to_uint8(img), quality=95)
+        np.savetxt(os.path.join(root, "poses", f"{i:04d}.txt"), homog(pose))
+    return root
+
+
+def mill19_scene(parent: str, dev) -> str:
+    """A Mill19 scene (coordinates.pt, train/metadata/*.pt written with
+    torch.save, train/rgbs/*.jpg): 12 cameras whose denormalized centres
+    (x 50 + origin_drb) lie at radius 100, which the loader's minimum
+    norm brings to 1; the sphere on white at 64x48."""
+    root = os.path.join(parent, "mill19", "scene")
+    os.makedirs(os.path.join(root, "train", "metadata"))
+    os.makedirs(os.path.join(root, "train", "rgbs"))
+    origin, psf = np.array([10.0, 20.0, 30.0]), 50.0
+    torch.save({"origin_drb": torch.tensor(origin),
+                "pose_scale_factor": psf},
+               os.path.join(root, "coordinates.pt"))
+    k = pinhole(64, 48)
+    unit = shell_poses(12, radius=1.0)
+    imgs = sphere_images(unit, k, (64, 48), DS_CFG[0.5], dev, 1.0)
+    for i, (img, pose) in enumerate(zip(imgs, unit)):
+        c2w = pose.copy()
+        c2w[:, 3] = (pose[:, 3] * 100.0 - origin) / psf
+        torch.save({"W": 64, "H": 48, "intrinsics": torch.tensor(
+            [k[0, 0], k[1, 1], 32.0, 24.0]),
+            "c2w": torch.tensor(c2w, dtype=torch.float64)},
+            os.path.join(root, "train", "metadata", f"{i + 1:06d}.pt"))
+        write_jpeg(os.path.join(root, "train", "rgbs", f"{i + 1:06d}.jpg"),
+                   to_uint8(img), quality=95)
+    return root
+
+
+# phase 10: dataset_type -> (scene writer, [steps an epoch,] the script's
+# options and the phase's cuts); the three full runs train through
+# train_ml.main
+DS_FULL = {
+    "nerfpp": (nerfpp_scene, 64, (
+        "--scale", "4", "--downsample", "1", "--cv_loss_w", "1e-2",
+        "--depth_mutual_loss_w", "5e-3", "--optimize_ext")),
+    "scannet": (scannet_scene, 96, (
+        "--scale", "0.5", "--downsample", str(DS_SCANNET), "--cv_loss_w",
+        "1e-2", "--depth_mutual_loss_w", "5e-3")),
+    "eyeful": (eyeful_scene, 64, (
+        "--scale", "4", "--downsample", str(DS_EYEFUL), "--cv_loss_w",
+        "1e-2", "--depth_mutual_loss_w", "1e-4")),
+}
+DS_SHORT = {
+    "nerf": (nerf_scene, ("--scale", "0.5", "--downsample", "0.25")),
+    "rtmv": (rtmv_scene, ("--scale", "0.5", "--downsample", "1")),
+    "replica": (replica_scene, ("--scale", "0.5", "--downsample", "1")),
+    "mill19": (mill19_scene, ("--scale", "0.5", "--downsample", "1")),
+}
+
+
+def ds_args(root: str, key: str, exp: str, *extra,
+            steps: int = DS_SHORT_STEPS) -> list:
+    return ["--root_dir", root, "--dataset_type", key, "--dataset_name",
+            key, "--scene_name", "sphere", "--exp_name", exp,
+            "--batch_size", "8192", "--lr", "1e-2", "--model_zoo_size", "2",
+            "--gate_type", "ray", "--hash_impl", "brick3",
+            "--hash_table_size", "19", "--steps_per_epoch", str(steps),
+            "--num_epochs", str(DS_EPOCHS), *extra]
+
+
+def codec_times() -> dict:
+    """Host times of the port's JPEG decode of one 1296x968 4:2:0 file
+    (a ScanNet frame's size, quality 90) and of resize_linear from the
+    ScanNet loader's unpadded 1248x920 to 648x484 (--downsample 0.5)."""
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:968, 0:1296]
+    img = np.stack([128 + 100 * np.sin(x / 37.0 + c) * np.cos(y / 23.0 - c)
+                    for c in range(3)], -1) + rng.normal(0, 8, (968, 1296, 3))
+    data = encode_jpeg(to_uint8(img / 255), quality=90, subsampling="4:2:0")
+    t0 = time.perf_counter()
+    dec = decode_jpeg(data)
+    t_dec = time.perf_counter() - t0
+    check(dec.shape == (968, 1296, 3), "JPEG decode shape")
+    f = dec[24:-24, 24:-24].astype(np.float32) / 255
+    t0 = time.perf_counter()
+    small = resize_linear(f, (648, 484))
+    t_rs = time.perf_counter() - t0
+    check(small.shape == (484, 648, 3) and np.isfinite(small).all(),
+          "resize_linear output")
+    return {"jpeg_decode_1296x968_s": t_dec, "jpeg_bytes": len(data),
+            "resize_1248x920_to_648x484_s": t_rs}
+
+
+def full_run(key: str, root: str, dev) -> dict:
+    """The untrained system validated, then train_ml.main with the
+    script's options: DS_EPOCHS epochs of the run's steps, a validation
+    and a checkpoint; test PSNR must rise by more than 3 dB."""
+    _, spe, opts = DS_FULL[key]
+    h = get_opts(ds_args(root, key, "untrained", *opts, "--no_save_test",
+                         steps=spe))
+    h.moe_training = True
+    untrained = tt.NeRFSystem(h, device=dev)
+    untrained.setup()
+    decoder = untrained.train_dataset.decoder
+    n_train = len(untrained.train_dataset.poses)
+    n_test = len(untrained.test_dataset.poses)
+    wh = untrained.train_dataset.img_wh
+    psnr0 = untrained.validate(epoch=0)["psnr"]
+    untrained.close()
+    del untrained
+    secs = []
+    system = train_ml.main(ds_args(root, key, "smoke", *opts, steps=spe),
+                           device=dev, on_step=step_timer(secs))
+    ckpt = load_ckpt(os.path.join("ckpts", key, "sphere", "smoke",
+                                  f"epoch={DS_EPOCHS - 1}.ckpt"))
+    with open(os.path.join("logs", key, "sphere", "smoke",
+                           "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    psnr1 = [m["value"] for m in metrics if m["tag"] == "test/psnr"][-1]
+    rec = {"decoder": decoder, "img_wh": list(wh), "train_views": n_train,
+           "test_views": n_test, "steps": len(secs),
+           "psnr_untrained": psnr0, "psnr_trained": psnr1,
+           "rays_per_s": float(np.median([8192 / t for t in secs[16:]]))}
+    check(len(secs) == DS_EPOCHS * spe, f"{key}: {len(secs)} steps")
+    check(psnr1 > psnr0 + 3.0, f"{key}: test psnr {psnr0} -> {psnr1}")
+    if "--optimize_ext" in opts:
+        ext = {n: v.detach() for n, v in system.ext_params.items()}
+        for name in ("dR", "dT"):
+            v = ext[name]
+            check(bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0,
+                  f"{key}: ext {name} not finite and nonzero")
+            check(np.array_equal(ckpt["ext_params"][name], v.cpu().numpy()),
+                  f"{key}: the checkpoint's ext_params differ")
+        rec["ext_abs_max"] = {n: float(ext[n].abs().max()) for n in ext}
+    system.close()
+    return rec
+
+
+def short_run(key: str, root: str, dev) -> dict:
+    """NeRFSystem.setup on the train and test splits, DS_SHORT_STEPS
+    steps and one validation; the loss must stay finite."""
+    h = get_opts(ds_args(root, key, "short", *DS_SHORT[key][1],
+                         "--no_save_test"))
+    h.moe_training = True
+    system = tt.NeRFSystem(h, device=dev)
+    system.setup()
+    losses = []
+    system.trainer.fit_steps(DS_SHORT_STEPS, lambda step, loss, aux:
+                             losses.append(float(loss)))
+    psnr = system.validate(epoch=0)["psnr"]
+    rec = {"decoder": system.train_dataset.decoder,
+           "img_wh": list(system.train_dataset.img_wh),
+           "train_views": len(system.train_dataset.poses),
+           "test_views": len(system.test_dataset.poses),
+           "loss_first": losses[0], "loss_last": losses[-1], "psnr": psnr}
+    check(len(losses) == DS_SHORT_STEPS and np.isfinite(losses).all(),
+          f"{key}: losses {losses}")
+    check(psnr is not None and np.isfinite(psnr), f"{key}: psnr {psnr}")
+    system.close()
+    return rec
+
+
+def datasets_phase(dev, smi: str) -> tuple:
+    """Phase 10: every dataset of the launch scripts (see the module
+    docstring). Returns (launch counts of the phase, summary)."""
+    t_phase = time.perf_counter()
+    summary = {"codec": codec_times(),
+               "native": native.unavailable_reason() or "loaded"}
+    print(f"[datasets] the native decoder: {summary['native']}")
+    print(f"[datasets] host times: JPEG decode 1296x968 4:2:0 "
+          f"{summary['codec']['jpeg_decode_1296x968_s']:.3f} s, "
+          f"resize_linear 1248x920 -> 648x484 "
+          f"{summary['codec']['resize_1248x920_to_648x484_s']:.4f} s")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    steps = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_datasets_") as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)          # logs/, ckpts/, results/ go under tmp
+        try:
+            for key, (writer, *_) in {**DS_FULL, **DS_SHORT}.items():
+                t0 = time.perf_counter()
+                root = writer(tmp, dev)
+                t_write = time.perf_counter() - t0
+                run = full_run if key in DS_FULL else short_run
+                rec = run(key, root, dev)
+                rec["write_s"] = t_write
+                rec["seconds"] = time.perf_counter() - t0
+                steps += (DS_EPOCHS * DS_FULL[key][1] if key in DS_FULL
+                          else DS_SHORT_STEPS)
+                summary[key] = rec
+                print(f"[datasets] {key}: {json.dumps(rec)}")
+        finally:
+            os.chdir(cwd)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    want = tt.TrainConfig(batch_size=8192).n_microbatch * steps
+    check(launches["brick3_table_grad"] == want,
+          f"brick3_table_grad launched {launches['brick3_table_grad']} "
+          f"times, expected {want} (4 microbatches x {steps} steps)")
+    for name in ("brick3_encode_fwd", "occ_lookup"):
+        check(launches[name] > want, f"{name} launched {launches[name]}")
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"[datasets] {summary['seconds']:.1f} s in all; {steps} steps; "
+          f"launches {launches}; {smi}")
+    return launches, summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1950,7 +2437,11 @@ def main() -> None:
     phase_launches["entry"], summary_e = entry_phase(cfg, dev, smi)
     print(json.dumps({"entry": summary_e}))
 
-    # 10. kernels line: per kernel and contract, the launches of the path
+    # 10. every dataset of the launch scripts, read back from disk
+    phase_launches["datasets"], summary_ds = datasets_phase(dev, smi)
+    print(json.dumps({"datasets": summary_ds}))
+
+    # 11. kernels line: per kernel and contract, the launches of the path
     # that runs it (its training phase, or the examples'; every phase's
     # counts, the entry point's among them, under launches_by_path); ms, plain, library and bound at a
     # training step 0 microbatch, the shape of most launches (the
@@ -1997,9 +2488,10 @@ def main() -> None:
     for key, name, source, replaces, contract, path in rows:
         n_launch = phase_launches[path][name]
         check(n_launch > 0, f"kernel {name} not launched on {path}")
-        if path == "train_brick3":       # rows 1-3: the entry point's too
-            check(phase_launches["entry"][name] > 0,
-                  f"kernel {name} not launched by the entry point")
+        if path == "train_brick3":       # rows 1-3: the entry points' too
+            for entry in ("entry", "datasets"):
+                check(phase_launches[entry][name] > 0,
+                      f"kernel {name} not launched on {entry}")
         runs = train_checks.get(key, []) + [
             checks[key] for checks in (render_checks, example_checks)
             if key in checks]

@@ -1,8 +1,10 @@
 """Image IO and color-space helpers (twin of radnerf_tpu/data/color_utils.py).
 
-Images are decoded by the native library (data/native.py) when it loads,
-else by imageio, else, for PNGs, by the port's own codec (data/png.py);
-each loader records which one read its images. A resize needs cv2. The
+Images are decoded by the native library (data/native.py) when it loads
+and the loader's JAX twin reads through it, else by imageio, else by the
+port's own codecs (data/png.py, data/jpeg.py), chosen by the file's magic
+bytes; each loader records which one read its images. A resize takes
+cv2's INTER_LINEAR where cv2 is installed, else `resize_linear`. The
 turbo colormap of `depth2img` is a copy of cv2's 256-entry table, so it
 needs no cv2.
 """
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import png
+from . import jpeg, png
 
 # cv2's COLORMAP_TURBO (256 RGB entries, 8 bits each)
 _TURBO_HEX = (
@@ -49,22 +51,98 @@ def _imageio():
     return imageio
 
 
-def python_decoder() -> str:
-    """The decoder `imread` takes: 'imageio', or the port's 'png codec'."""
-    return "imageio" if _imageio() is not None else "png codec"
+def _codec(head: bytes):
+    """The port's codec for a file starting with `head`: (name, decode,
+    size from the header), or None."""
+    if head.startswith(png.SIGNATURE):
+        return "png codec", png.decode_png, png.png_size
+    if head.startswith(jpeg.SOI):
+        return "jpeg codec", jpeg.decode_jpeg, jpeg.jpeg_size
+    return None
+
+
+def _head(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read(8)
+
+
+def python_decoder(path: str) -> str:
+    """The decoder `imread` takes for `path`: 'imageio', or the port's
+    'png codec' or 'jpeg codec'."""
+    if _imageio() is not None:
+        return "imageio"
+    codec = _codec(_head(path))
+    return codec[0] if codec else "none"
 
 
 def imread(path: str) -> np.ndarray:
-    """uint8 (H, W) or (H, W, C), as imageio.imread gives it."""
+    """uint8 (H, W) or (H, W, C), as imageio.imread gives it: imageio
+    where it is installed, else the port's PNG or JPEG codec, chosen by
+    the file's magic bytes (as PIL sniffs them), not by its extension."""
     imageio = _imageio()
     if imageio is not None:
         return imageio.imread(path)
-    if path.lower().endswith(".png"):
-        return png.read_png(path)
-    raise ImportError(
-        f"reading {path} needs imageio, which is not installed (the native "
-        "decoder, native/libradnerf_io.so, did not load either); the "
-        "port's own codec reads PNG only")
+    codec = _codec(_head(path))
+    if codec is None:
+        raise ImportError(
+            f"reading {path} needs imageio, which is not installed (the "
+            "native decoder, native/libradnerf_io.so, did not load "
+            "either); the port's own codecs read PNG and baseline JPEG "
+            "only")
+    with open(path, "rb") as f:
+        return codec[1](f.read())
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """(width, height) of an image file: PIL's where it is installed, else
+    the PNG (IHDR) or JPEG (SOFn) header's."""
+    try:
+        from PIL import Image
+    except ImportError:
+        pass
+    else:
+        with Image.open(path) as img:
+            return img.size
+    with open(path, "rb") as f:
+        data = f.read()
+    codec = _codec(data)
+    if codec is None:
+        raise ImportError(f"the size of {path} needs PIL, which is not "
+                          "installed; the header reader knows PNG and JPEG")
+    return codec[2](data)
+
+
+def _lerp(a: np.ndarray, b: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """float32 round(a + (b - a) w) with one rounding of the fused
+    multiply-add (b - a is rounded first): cv2's INTER_LINEAR arithmetic
+    on float32 images."""
+    return ((b - a).astype(np.float64) * w + a).astype(np.float32)
+
+
+def _linear_taps(n_out: int, n_in: int):
+    """Source indices (clamped to the image) and float32 weights of the
+    second tap: the half-pixel map (d + 0.5) * scale - 0.5 in float64, as
+    cv2 computes it (scale = 1 / (n_out / n_in))."""
+    f = (np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    s = np.floor(f)
+    w = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    return np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1), w
+
+
+def resize_linear(img: np.ndarray, wh: tuple[int, int]) -> np.ndarray:
+    """cv2.resize(img, wh) (INTER_LINEAR) of a float32 (H, W[, C]) image
+    without cv2: rows first, then columns, each output the two nearest
+    samples' lerp under the half-pixel map, with the edge samples
+    repeated outside the image. On [0, 1] images it is within 2^-24 of
+    cv2 (tests/test_torch_data.py)."""
+    img = np.asarray(img, np.float32)
+    w_out, h_out = wh
+    x0, x1, wx = _linear_taps(w_out, img.shape[1])
+    wx = wx.reshape((-1,) + (1,) * (img.ndim - 2))
+    rows = _lerp(img[:, x0], img[:, x1], wx)
+    y0, y1, wy = _linear_taps(h_out, img.shape[0])
+    return _lerp(rows[y0], rows[y1], wy.reshape((-1,) + (1,) * (img.ndim - 1)))
 
 
 def imwrite(path: str, img: np.ndarray) -> None:
@@ -85,7 +163,8 @@ def read_image(
 ) -> np.ndarray:
     """Load an image as a flattened (H*W, 3) float array in [0, 1]
     (color_utils.py:21-35): alpha is blended onto white (or premultiplied),
-    optional border unpadding, resize to img_wh (which needs cv2)."""
+    optional border unpadding, resize to img_wh (cv2 where it is
+    installed, else resize_linear)."""
     img = imread(img_path).astype(np.float32) / 255.0
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
@@ -101,13 +180,10 @@ def read_image(
     if (img.shape[1], img.shape[0]) != tuple(img_wh):
         try:
             import cv2
-        except ImportError as e:
-            raise ImportError(
-                f"{img_path} is {img.shape[1]}x{img.shape[0]}, not "
-                f"{img_wh[0]}x{img_wh[1]}: resizing needs cv2, which is not "
-                "installed (the native decoder, native/libradnerf_io.so, "
-                "did not load either)") from e
-        img = cv2.resize(img, tuple(img_wh))
+        except ImportError:
+            img = resize_linear(img, tuple(img_wh))
+        else:
+            img = cv2.resize(img, tuple(img_wh))
     return img.reshape(-1, 3)
 
 
@@ -116,20 +192,23 @@ def read_images_with_decoder(
     img_wh: tuple[int, int],
     blend_a: bool = True,
     unpad: int = 0,
+    native: bool = True,
 ) -> tuple[np.ndarray, str]:
     """Batch image load: the native threaded C++ decoder
-    (native/radnerf_io.cpp) when it loads, `read_image` per image
+    (native/radnerf_io.cpp) when it loads and `native` is set (the
+    loaders whose JAX twins call read_images), `read_image` per image
     otherwise. Returns ((n, W*H, 3) float32 in [0, 1], the decoder's
     name)."""
-    from .native import load_images
+    if native:
+        from .native import load_images
 
-    out = load_images(paths, img_wh, blend_a=blend_a, unpad=unpad)
-    if out is not None:
-        return out, "native"
+        out = load_images(paths, img_wh, blend_a=blend_a, unpad=unpad)
+        if out is not None:
+            return out, "native"
     rays = np.stack(
         [read_image(p, img_wh, blend_a=blend_a, unpad=unpad) for p in paths]
     ).astype(np.float32)
-    return rays, python_decoder()
+    return rays, python_decoder(paths[0])
 
 
 def depth2img(depth: np.ndarray) -> np.ndarray:

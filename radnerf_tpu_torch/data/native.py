@@ -6,7 +6,8 @@ The library is the repository's `native/libradnerf_io.so` (built from
 load (absent, or its libpng / libjpeg missing), it is built from the same
 source with g++ into the git-ignored `radnerf_tpu_torch/_build/`, never
 into `native/`. Where that fails too, `load_images` returns None and the
-caller decodes in Python (color_utils.read_image).
+caller decodes in Python (color_utils.read_image); `unavailable_reason`
+then says why (the loader's OSError, or the last line of g++'s error).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ BUILT_LIB = Path(__file__).resolve().parents[1] / "_build" / "libradnerf_io.so"
 
 _lib = None
 _tried = False
+_reasons = []             # why each library path did not load or build
 
 
 def _bind(path: Path):
@@ -39,8 +41,16 @@ def _bind(path: Path):
     return lib
 
 
+def _last_line(text) -> str:
+    if isinstance(text, bytes):
+        text = text.decode(errors="replace")
+    lines = [ln.strip() for ln in (text or "").splitlines() if ln.strip()]
+    return lines[-1] if lines else ""
+
+
 def _build() -> bool:
-    """g++ native/radnerf_io.cpp -> _build/libradnerf_io.so (atomically)."""
+    """g++ native/radnerf_io.cpp -> _build/libradnerf_io.so (atomically);
+    on failure, the reason joins _reasons."""
     BUILT_LIB.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILT_LIB.parent)
     os.close(fd)
@@ -51,7 +61,11 @@ def _build() -> bool:
             check=True, capture_output=True, timeout=120)
         os.replace(tmp, BUILT_LIB)
         return True
-    except (OSError, subprocess.SubprocessError):
+    except subprocess.CalledProcessError as e:
+        _reasons.append(f"g++ failed: {_last_line(e.stderr)}")
+        return False
+    except (OSError, subprocess.SubprocessError) as e:
+        _reasons.append(f"g++ did not run: {e}")
         return False
     finally:
         if os.path.exists(tmp):
@@ -69,9 +83,19 @@ def _load():
         try:
             _lib = _bind(path)
             break
-        except (OSError, AttributeError):
+        except (OSError, AttributeError) as e:
+            _reasons.append(
+                f"{path.parent.name}/{path.name} did not load: {e}")
             continue
     return _lib
+
+
+def unavailable_reason() -> str | None:
+    """Why the native library is not in use (None where it loaded): what
+    loading native/libradnerf_io.so said, and what building it said."""
+    if _load() is not None:
+        return None
+    return "; ".join(_reasons) or "not tried"
 
 
 def load_images(

@@ -103,6 +103,13 @@ def decode_png(data: bytes) -> np.ndarray:
     return img.reshape(h, w) if c == 1 else img.reshape(h, w, c)
 
 
+def png_size(data: bytes) -> tuple[int, int]:
+    """(width, height) from the IHDR chunk of PNG bytes."""
+    if data[:len(SIGNATURE)] != SIGNATURE or data[12:16] != b"IHDR":
+        raise ValueError("not a PNG file")
+    return struct.unpack(">II", data[16:24])
+
+
 def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_png(f.read())

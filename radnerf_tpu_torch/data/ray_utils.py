@@ -1,8 +1,10 @@
 """Camera-ray geometry utilities (numpy, host-side).
 
 Twin of radnerf_tpu/data/ray_utils.py (the reference's
-datasets/ray_utils.py): pixel-center ray directions, pose averaging and
-centering, and spheric test trajectories.
+datasets/ray_utils.py): pixel-center ray directions, Rodrigues
+axis-angle, pose averaging and centering, and spheric test
+trajectories. The trainer's differentiable twin of `axisangle_to_R`
+(--optimize_ext) is train/trainer.py::torch_axisangle_to_R.
 """
 
 from __future__ import annotations
@@ -42,6 +44,30 @@ def get_ray_directions(
     if return_uv:
         return directions, grid
     return directions
+
+
+def axisangle_to_R(v: np.ndarray) -> np.ndarray:
+    """Rodrigues formula (ray_utils.py:74-100). v: (B, 3) or (3,)."""
+    single = v.ndim == 1
+    if single:
+        v = v[None]
+    zero = np.zeros_like(v[:, :1])
+    skew = np.stack(
+        [
+            np.concatenate([zero, -v[:, 2:3], v[:, 1:2]], 1),
+            np.concatenate([v[:, 2:3], zero, -v[:, 0:1]], 1),
+            np.concatenate([-v[:, 1:2], v[:, 0:1], zero], 1),
+        ],
+        axis=1,
+    )
+    norm = np.linalg.norm(v, axis=1)[:, None, None] + 1e-7
+    eye = np.eye(3, dtype=v.dtype)[None]
+    R = (
+        eye
+        + np.sin(norm) / norm * skew
+        + (1 - np.cos(norm)) / norm**2 * (skew @ skew)
+    )
+    return R[0] if single else R
 
 
 def normalize(v: np.ndarray) -> np.ndarray:

@@ -230,8 +230,9 @@ def hashgrid_encode_packed(table: torch.Tensor, x: torch.Tensor,
 class _TableGradEncode(torch.autograd.Function):
     """An encode whose backward is a table-gradient function: forward
     `fwd(table, x)`, backward `table_grad(x, g)` with g the f32 output
-    gradient, giving (L, T, 2) f32. No gradient reaches x (the
-    reference's ray-marcher position gradients are never consumed)."""
+    gradient, giving (L, T, 2) f32. No gradient reaches x, as in every
+    reference family with a custom backward (they return zeros for the
+    positions)."""
 
     @staticmethod
     def forward(ctx, table, x, fwd, table_grad):
@@ -296,8 +297,10 @@ def encode_dispatch(table: torch.Tensor, x: torch.Tensor,
                     packed: torch.Tensor | None = None) -> torch.Tensor:
     """The differentiable encode of `impl` (see the module docstring):
     brick3, brick and slab in bfloat16, else the tcnn hash; 'xla' takes
-    the tcnn scatter kernel as its backward like 'window'. `packed` is a
-    brick3 table packed once by the caller (brick3 only)."""
+    the tcnn scatter kernel as its table backward like 'window', and is
+    the one family whose positions get a gradient (see
+    hashgrid_encode_xla). `packed` is a brick3 table packed once by the
+    caller (brick3 only)."""
     impl = resolve_impl(impl)
     bf16 = compute_dtype == torch.bfloat16
     if impl in ("brick3", "brick3_plain"):
@@ -327,10 +330,14 @@ def encode_dispatch(table: torch.Tensor, x: torch.Tensor,
         from .hashgrid_dedup import hashgrid_encode_dedup
 
         return hashgrid_encode_dedup(table, x, cfg, compute_dtype)
-    if impl in ("window", "xla"):
+    if impl == "window":
         from .hashgrid_window import hashgrid_encode_window
 
         return hashgrid_encode_window(table, x, cfg, compute_dtype)
+    if impl == "xla":
+        from .hashgrid_window import hashgrid_encode_xla
+
+        return hashgrid_encode_xla(table, x, cfg, compute_dtype)
     if impl == "sort":
         from .hashgrid_sort import hashgrid_encode_sort
 

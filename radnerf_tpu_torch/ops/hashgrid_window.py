@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from .hashgrid import (
-    HashGridConfig, hashgrid_encode, hashgrid_indices_cm, table_grad_encode,
+    HashGridConfig, _cm_out, _flat_level_idx, hashgrid_encode,
+    hashgrid_indices_cm, table_grad_encode,
 )
 from .stream_table_grad import stream_table_grad
 
@@ -94,3 +95,34 @@ def hashgrid_encode_window(table: torch.Tensor, x: torch.Tensor,
         lambda t, v: hashgrid_encode(t, v, cfg, compute_dtype),
         lambda v, g: hashgrid_table_grad_window(
             *hashgrid_indices_cm(v, cfg), g, cfg))
+
+
+def hashgrid_encode_xla(table: torch.Tensor, x: torch.Tensor,
+                        cfg: HashGridConfig,
+                        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The 'xla' family: the reference differentiates its plain gather by
+    autodiff, so its positions get a gradient through the trilinear
+    weights, the only family where they do (--optimize_ext reaches the
+    poses through it). The table's gradient is the scatter kernel's, as
+    in 'window'; where x requires a gradient, a term that is zero in
+    value adds the position gradient (_position_term)."""
+    out = hashgrid_encode_window(table, x, cfg, compute_dtype)
+    if not x.requires_grad:
+        return out
+    plain = _position_term(table.detach(), x, cfg, compute_dtype)
+    return out + (plain - plain.detach())
+
+
+def _position_term(table: torch.Tensor, x: torch.Tensor,
+                   cfg: HashGridConfig, compute_dtype) -> torch.Tensor:
+    """The reference's plain encode written as it computes it, for
+    autograd's position gradient: one product and one corner sum per
+    feature in `compute_dtype`, so that each weight's gradient is the two
+    features' rounded products, added in `compute_dtype`."""
+    idx, w = hashgrid_indices_cm(x, cfg)
+    flat = _flat_level_idx(idx, cfg.table_size)
+    t = table.to(compute_dtype)
+    wc = w.to(compute_dtype)
+    o0 = (wc * t[..., 0].reshape(-1)[flat]).sum(dim=1)
+    o1 = (wc * t[..., 1].reshape(-1)[flat]).sum(dim=1)
+    return _cm_out(o0, o1)

@@ -70,7 +70,8 @@ def get_parser() -> argparse.ArgumentParser:
 
     # experimental training options
     parser.add_argument('--optimize_ext', action='store_true', default=False,
-                        help='whether to optimize extrinsics')
+                        help='whether to optimize extrinsics (per-image '
+                             'pose corrections with their own Adam at 1e-8)')
     parser.add_argument('--random_bg', action='store_true', default=False,
                         help='train with random bg color (real scenes)')
 
@@ -169,8 +170,9 @@ def get_parser() -> argparse.ArgumentParser:
                      help='capture a profiler trace for this many steps '
                           '(starting at step 10) into the log dir')
     dev.add_argument('--host_sampling', action='store_true', default=False,
-                     help='sample ray batches on host instead of on device '
-                          '(for datasets too large for device memory)')
+                     help='accepted and has no effect, as in the JAX '
+                          'package, which declares it and reads it nowhere: '
+                          'the ray store always stays on the device')
     dev.add_argument('--seed', type=int, default=1337)
     dev.add_argument('--steps_per_epoch', type=int, default=0,
                      help='override the 1000 virtual steps/epoch '

@@ -52,11 +52,16 @@ def _expert_samples_union_flat(
     K = cfg.n_experts
     dev = rays_o.device
     center, half = scene_center_half(state)
-    t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
+    # the march is not differentiated: its ts and deltas are the
+    # reference's stop_gradient outputs, so rays that carry a gradient
+    # (--optimize_ext) reach the loss through the positions, the SH
+    # directions and the gate only
+    ro, rd = rays_o.detach(), rays_d.detach()
+    t1, t2 = scene_near_far(ro, rd, center, half, NEAR_DISTANCE)
     mcfg = rcfg.march(cfg)
     d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
     m, member = march_rays_union_flat(
-        rays_o, rays_d, t1, t2, state["occ"], mcfg, noise,
+        ro, rd, t1, t2, state["occ"], mcfg, noise,
         budget_per_ray=max(1, round(
             rcfg.budget_per_ray * (rcfg.union_budget_factor or K))),
         cap_scale=K,   # the per-ray cap stays expert-equivalent

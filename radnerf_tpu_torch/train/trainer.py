@@ -7,7 +7,10 @@ and checkpoints.
 The step: gate, one union march, one shared hash encode (the family of
 `MNGPConfig.hash_impl` and `compute_dtype`), per-expert MLPs and flat
 compositing, nerf_loss, backward, Adam (eps 1e-15) at the cosine
-learning rate. Beside it the density grids are updated every 16 steps
+learning rate. With --optimize_ext, per-image pose corrections
+(axis-angle dR, translation dT) refine each batch's cameras before its
+rays are cast, and take their own Adam group at a constant 1e-8 with
+optax's eps 1e-8. Beside it the density grids are updated every 16 steps
 (every cell below `warmup_steps`) and, with --adaptive_budget (the
 default), the flat-layout sample budget is re-picked from the measured
 buffer utilization. Batches are drawn on the device from a
@@ -54,6 +57,9 @@ UPDATE_INTERVAL = 16
 BUDGET_BUCKETS = (16, 24, 32, 40, 48, 56, 64, 80, 96, 112)
 DENSITY_THRESHOLD = 0.01 * MAX_SAMPLES / math.sqrt(3)
 MICROBATCH_RAYS = 2048        # rays per accumulation slice (auto rule)
+# --optimize_ext: the reference's constant extrinsics learning rate
+# (train.py:160) and optax.adam's default eps (the network's is 1e-15)
+EXT_LR, EXT_EPS = 1e-8, 1e-8
 
 
 def next_budget_bucket(
@@ -138,14 +144,50 @@ def lr_schedule(tcfg: TrainConfig, step: int) -> float:
         1 + math.cos(math.pi * epoch / tcfg.num_epochs))
 
 
+def torch_axisangle_to_R(v: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: (N, 3) axis-angle -> (N, 3, 3) (twin of
+    jnp_axisangle_to_R). Below theta^2 = 1e-8 the Taylor forms are taken,
+    and both branches see safe inputs, so the gradient is finite at the
+    all-zeros init."""
+    t2 = (v * v).sum(dim=-1, keepdim=True)              # (N, 1)
+    small = t2 < 1e-8
+    t2_safe = torch.where(small, torch.ones_like(t2), t2)
+    theta = torch.sqrt(t2_safe)
+    a = torch.where(small, 1.0 - t2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(theta)) / t2_safe)
+    zeros = torch.zeros_like(v[..., 0])
+    K = torch.stack([
+        torch.stack([zeros, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], zeros, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], zeros], -1),
+    ], -2)                                              # cross-product matrix
+    eye = torch.eye(3, dtype=v.dtype, device=v.device)
+    return eye + a[..., None] * K + b[..., None] * (K @ K)
+
+
+def apply_pose_refinement(poses: torch.Tensor, ext: dict,
+                          img_idxs: torch.Tensor) -> torch.Tensor:
+    """(B, 3, 4) poses refined by their images' dR (axis-angle, applied on
+    the left of the rotation) and dT (added to the centre)."""
+    dR = torch_axisangle_to_R(ext["dR"][img_idxs])
+    R = dR @ poses[..., :3]
+    t = poses[..., 3] + ext["dT"][img_idxs]
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
 def loss_fn(bundle: dict, model_state: dict, batch: dict, data: dict,
             cfg: MNGPConfig, rcfg: RenderConfig, tcfg: TrainConfig,
             gen: torch.Generator | None = None):
     """(loss, aux) of a batch {img_idxs, pix_idxs, noise} over the ray
     store `data` {rays, poses, directions, mean_dir}; bundle {model,
-    gate}; `gen` draws the random backgrounds (rcfg.random_bg). aux:
-    psnr, rm_samples, budget_util."""
+    gate} and, with --optimize_ext, "ext" {dR, dT}, which refines the
+    batch's poses (the rays and the gate's image direction both see the
+    refined poses); `gen` draws the random backgrounds (rcfg.random_bg).
+    aux: psnr, rm_samples, budget_util."""
     poses = data["poses"][batch["img_idxs"]]
+    if "ext" in bundle:
+        poses = apply_pose_refinement(poses, bundle["ext"],
+                                      batch["img_idxs"])
     rays_o, rays_d = get_rays(data["directions"][batch["pix_idxs"]], poses)
     imgs_d = get_rays(data["mean_dir"].expand(poses.shape[0], 3), poses)[1]
     target = {"rgb": data["rays"][batch["img_idxs"], batch["pix_idxs"]][:, :3]}
@@ -185,22 +227,33 @@ def sample_batch(gen: torch.Generator, data: dict, batch_size: int) -> dict:
 
 class Trainer:
     """The state of one MoE training run on one device: parameters
-    {model, gate} (updated in place), Adam, the density grids, the ray
-    store and the generator of every draw (on the ray store's device)."""
+    {model, gate} and, with --optimize_ext, "ext" (updated in place),
+    Adam, the density grids, the ray store and the generator of every
+    draw (on the ray store's device).
+
+    One torch.optim.Adam holds two parameter groups, as the reference's
+    optax.multi_transform holds two Adams: group 0 the network {model,
+    gate} (eps 1e-15, the cosine schedule), group 1 the pose corrections
+    (EXT_LR, EXT_EPS, no schedule)."""
 
     def __init__(self, cfg: MNGPConfig, tcfg: TrainConfig, params: dict,
                  gate_params: dict, model_state: dict, data: dict,
-                 gen: torch.Generator):
+                 gen: torch.Generator, ext_params: dict | None = None):
         self.cfg, self.tcfg, self.gen = cfg, tcfg, gen
         self.rcfg = render_config(cfg, tcfg)
         self.buckets = budget_buckets(cfg.n_experts)
         self.bundle = {"model": params, "gate": gate_params}
+        groups = [{"params": tree_leaves(self.bundle)}]
+        if ext_params is not None:
+            self.bundle["ext"] = ext_params
+            groups.append({"params": tree_leaves(ext_params), "lr": EXT_LR,
+                           "eps": EXT_EPS})
         for p in tree_leaves(self.bundle):
             p.requires_grad_(True)
         self.model_state = model_state
         self.data = {**data, "mean_dir": data["directions"].mean(dim=0)}
-        self.optimizer = torch.optim.Adam(
-            tree_leaves(self.bundle), lr=lr_schedule(tcfg, 0), eps=1e-15)
+        self.optimizer = torch.optim.Adam(groups, lr=lr_schedule(tcfg, 0),
+                                          eps=1e-15)
         self.global_step = 0
         self.last_budget_util = None
         self._step = make_train_step(
@@ -216,10 +269,10 @@ class Trainer:
         )
 
     def train_step(self, batch: dict):
-        """One Adam update at the scheduled learning rate (optax's count:
-        the number of updates done before this one)."""
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr_schedule(self.tcfg, self.global_step)
+        """One Adam update, the network at the scheduled learning rate
+        (optax's count: the number of updates done before this one)."""
+        self.optimizer.param_groups[0]["lr"] = lr_schedule(
+            self.tcfg, self.global_step)
         loss, aux = self._step(self.bundle, self.model_state, batch,
                                self.data)
         self.global_step += 1
@@ -264,11 +317,9 @@ def refuse_unported(h) -> None:
              "non-MoE training (train.py's single NGP field; queue 1, "
              "item 5)"),
             (h.layout == "dense", "--layout dense (queue 1, item 5)"),
-            (h.optimize_ext, "--optimize_ext (queue 1, item 2)"),
             (h.num_devices > 1, "--num_devices > 1 (queue 1, item 5: "
                                 "parallel/)"),
             (h.multihost, "--multihost (queue 1, item 5: parallel/)"),
-            (h.host_sampling, "--host_sampling (queue 1, item 4)"),
             (h.ckpt_backend == "orbax",
              "--ckpt_backend orbax (queue 1, item 3)"),
         ) if cond
@@ -352,10 +403,14 @@ class NeRFSystem:
 
         data = {"rays": put(ds.rays), "poses": put(ds.poses),
                 "directions": put(ds.directions)}
+        ext = None
+        if h.optimize_ext:                    # train.py:146-150
+            ext = {k: torch.zeros(len(ds.poses), 3, device=dev)
+                   for k in ("dR", "dT")}
         self.trainer = Trainer(
             self.cfg, self.tcfg, params, gate,
             init_mngp_state(self.cfg, device=dev), data,
-            torch.Generator(device=dev).manual_seed(h.seed + 1))
+            torch.Generator(device=dev).manual_seed(h.seed + 1), ext)
 
     def lr_schedule(self, step: int) -> float:
         """The cosine schedule (train_ml.py:148-151) at `step`."""
@@ -372,6 +427,10 @@ class NeRFSystem:
     @property
     def gate_params(self) -> dict:
         return self.trainer.bundle["gate"]
+
+    @property
+    def ext_params(self) -> dict | None:
+        return self.trainer.bundle.get("ext")
 
     @property
     def model_state(self) -> dict:
@@ -530,23 +589,26 @@ class NeRFSystem:
         return False
 
     def resume(self, ckpt_path: str) -> None:
-        """Full resume (params, Adam state, grids, step) from a checkpoint
-        of either package. An Adam state that does not match the
-        parameters (another optimizer layout) is dropped: training goes
-        on with fresh Adam moments, as in the reference."""
+        """Full resume (params, pose corrections, Adam state, grids, step)
+        from a checkpoint of either package. An Adam state that does not
+        match the parameters (another optimizer layout) is dropped:
+        training goes on with fresh Adam moments, as in the reference."""
         ckpt = load_ckpt(ckpt_path)
         tr = self.trainer
         _copy_into(tr.bundle["model"], ckpt["params"], "params")
         if "gate_params" in ckpt:
             _copy_into(tr.bundle["gate"], ckpt["gate_params"], "gate_params")
+        if "ext" in tr.bundle and "ext_params" in ckpt:
+            _copy_into(tr.bundle["ext"], ckpt["ext_params"], "ext_params")
         tr.optimizer.state.clear()
         if "opt_state" in ckpt:
             try:
                 load_adam_state(tr.optimizer, tr.bundle,
                                 adam_state_from_jax(ckpt["opt_state"]))
-            except ValueError:
-                self.logger.info("resume: opt_state structure mismatch — "
-                                 "starting with fresh optimizer state")
+            except ValueError as e:
+                self.logger.info(f"resume: opt_state structure mismatch "
+                                 f"({e}) — starting with fresh optimizer "
+                                 "state")
         if "model_state" in ckpt:
             _copy_into(tr.model_state, ckpt["model_state"], "model_state")
         tr.global_step = int(ckpt.get("step", 0))
@@ -581,11 +643,12 @@ class NeRFSystem:
 
     def save_checkpoint(self, epoch: int) -> None:
         """epoch=<epoch>.ckpt in the JAX package's layout, recording the
-        RESOLVED hash impl (a table decodes only under its family)."""
+        RESOLVED hash impl (a table decodes only under its family); with
+        --optimize_ext also ext_params."""
         hp = dict(vars(self.h))
         hp["resolved_hash_impl"] = resolve_impl(self.cfg.hash_impl)
         params, gate = params_to_jax(self.params, self.gate_params)
-        save_ckpt(os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt"), {
+        payload = {
             "params": params,
             "gate_params": gate,
             "opt_state": adam_state_to_jax(self.trainer.optimizer,
@@ -593,13 +656,20 @@ class NeRFSystem:
             "model_state": state_to_jax(self.model_state),
             "step": self.global_step,
             "hparams": hp,
-        })
+        }
+        if self.ext_params is not None:
+            payload["ext_params"] = state_to_jax(self.ext_params)
+        save_ckpt(os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt"),
+                  payload)
 
     def export_slim(self, epoch: int) -> None:
+        """The slim file of the last checkpoint, as the reference writes
+        it: slim_ckpt keeps "pose_params", which no checkpoint holds (the
+        poses are saved as "ext_params"), so no slim file carries poses."""
         path = os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt")
         if os.path.exists(path):
             save_ckpt(os.path.join(self.ckpt_dir, f"epoch={epoch}_slim.ckpt"),
-                      slim_ckpt(path))
+                      slim_ckpt(path, save_poses=self.h.optimize_ext))
         self.export_video()
 
     def export_video(self) -> None:

@@ -18,14 +18,12 @@ from .opt import get_opts
 from .train.trainer import NeRFSystem
 
 
-def main(argv=None, device=DEFAULT_DEVICE, on_step=None) -> NeRFSystem:
-    """Parse `argv`, set up, resume (--ckpt_path, or --resume auto), then
-    validate (--val_only) or train. `on_step(step, loss, aux)` is called
-    after every training step. Returns the system."""
-    hparams = get_opts(argv)
+def run(hparams, device=DEFAULT_DEVICE, on_step=None) -> NeRFSystem:
+    """Set up, resume (--ckpt_path, or --resume auto), then validate
+    (--val_only) or train. `on_step(step, loss, aux)` is called after
+    every training step. Returns the system."""
     if hparams.val_only and not hparams.ckpt_path:
         raise ValueError("You need to provide a @ckpt_path for validation!")
-    hparams.moe_training = True  # this entry is the canonical MoE path
     system = NeRFSystem(hparams, device=device)
     system.setup()
     if hparams.ckpt_path:
@@ -37,6 +35,13 @@ def main(argv=None, device=DEFAULT_DEVICE, on_step=None) -> NeRFSystem:
     else:
         system.fit(on_step)
     return system
+
+
+def main(argv=None, device=DEFAULT_DEVICE, on_step=None) -> NeRFSystem:
+    """Parse `argv` and `run` the MoE system."""
+    hparams = get_opts(argv)
+    hparams.moe_training = True  # this entry is the canonical MoE path
+    return run(hparams, device, on_step)
 
 
 if __name__ == "__main__":

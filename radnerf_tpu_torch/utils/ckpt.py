@@ -3,11 +3,14 @@
 A checkpoint is one pickle file of numpy arrays and plain Python values,
 in the JAX package's tree layout (`convert.params_to_jax`,
 `convert.state_to_jax`), so either package loads the other's:
-{params, gate_params, opt_state, model_state, step, hparams}. The port
-writes its Adam state as a plain {"count", "mu", "nu"} dict
+{params, gate_params, opt_state, model_state, step, hparams}, and
+ext_params with --optimize_ext. The port writes its Adam state as a
+plain {"count", "mu", "nu"} dict, one per group with --optimize_ext
 (`convert.adam_state_to_jax`); the JAX package writes optax's
-(ScaleByAdamState, ScaleByScheduleState) NamedTuples, which `load_ckpt`
-reads as stand-ins of the same names and fields, without importing optax.
+(ScaleByAdamState, ScaleByScheduleState) NamedTuples, and with
+--optimize_ext multi_transform's PartitionState of MaskedStates (with
+MaskedNode leaves), which `load_ckpt` reads as stand-ins of the same
+names and fields, without importing optax.
 
 `load_ckpt` unpickles only numpy arrays, dtypes and those stand-ins, and
 refuses any other class a file names. The reference's orbax directories
@@ -30,8 +33,12 @@ ScaleByAdamState = collections.namedtuple("ScaleByAdamState",
 ScaleByScheduleState = collections.namedtuple("ScaleByScheduleState",
                                               "count")
 EmptyState = collections.namedtuple("EmptyState", "")
+PartitionState = collections.namedtuple("PartitionState", "inner_states")
+MaskedState = collections.namedtuple("MaskedState", "inner_state")
+MaskedNode = collections.namedtuple("MaskedNode", "")
 _OPTAX = {c.__name__: c for c in (ScaleByAdamState, ScaleByScheduleState,
-                                  EmptyState)}
+                                  EmptyState, PartitionState, MaskedState,
+                                  MaskedNode)}
 _NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
                   "numpy.core.numeric", "numpy._core.numeric")
 _NUMPY_NAMES = ("ndarray", "dtype", "_reconstruct", "scalar", "_frombuffer")

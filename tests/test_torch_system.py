@@ -5,8 +5,9 @@ epochs) and writes checkpoints, a slim export, validation images,
 metrics and a profiler trace; validation's PSNR and SSIM are the JAX
 metrics of the same renders; --resume auto skips a torn checkpoint; the
 learning rate is the JAX closure's; --no-adaptive_budget, --random_bg,
-the oracle, the flags the port refuses, and a JAX checkpoint resumed by
-the system.
+--host_sampling (no effect, as in the reference), the oracle, the train.py
+twin, the flags the port refuses, and a JAX checkpoint resumed by the
+system.
 
 The system builds MNGPConfig from the flags; the density grid (128^3 in
 the reference, no flag) is cut to 32^3 and the levels to 4 here, so that
@@ -303,15 +304,49 @@ def test_a_jax_checkpoint_resumes_in_the_system(run, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--layout", "dense"], ["--optimize_ext"], ["--num_devices", "2"],
-    ["--multihost"], ["--host_sampling"], ["--ckpt_backend", "orbax"],
-    "single field"])
+    ["--layout", "dense"], ["--num_devices", "2"], ["--multihost"],
+    ["--ckpt_backend", "orbax"], "single field"])
 def test_unported_flags_are_refused(tmp_path, monkeypatch, extra):
     monkeypatch.chdir(tmp_path)
     moe = extra != "single field"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         system_for("nowhere", "x", *(extra if moe else []), moe=moe)
     assert os.listdir(tmp_path) == []
+
+
+def test_host_sampling_is_accepted_and_changes_nothing(run):
+    """--host_sampling has no code behind it in the JAX package (opt.py
+    declares it; nothing reads it), so it is accepted and the steps are
+    the same with and without it."""
+    os.chdir(run.work)
+    params = []
+    for extra in ((), ("--host_sampling",)):
+        system = system_for(run.root, "host", "--no_save_test", *extra)
+        system.setup()
+        system.trainer.fit_steps(3)
+        params.append([p.detach().clone() for p in
+                       tree_leaves(system.trainer.bundle)])
+        system.close()
+    for a, b in zip(*params):
+        assert torch.equal(a, b)
+
+
+def test_train_entry_runs_the_moe_system_and_refuses_the_single_field(
+        run, monkeypatch):
+    """python -m radnerf_tpu_torch.train (the twin of train.py): with
+    --moe_training the NeRFSystem of train_ml; without, the single NGP
+    field is refused naming its ROADMAP.md item."""
+    from radnerf_tpu_torch.train.__main__ import main as train_main
+
+    os.chdir(run.work)
+    system = train_main(args(run.root, "train_py", "--moe_training",
+                             "--num_epochs", "1", "--no_save_test"),
+                        device="cpu")
+    assert system.global_step == 6
+    assert os.path.exists(_path(run, "ckpts", "train_py", "epoch=0.ckpt"))
+    system.close()
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+        train_main(args(run.root, "train_py_single"), device="cpu")
 
 
 def test_flags_are_the_jax_flags():
