@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's Rad-NeRF MoE render and training, its
 examples' microbenchmark kernels, its train_ml.py entry point on a scene
-on disk, and every dataset loader of the launch scripts, on one NVIDIA
+on disk, every dataset loader of the launch scripts, train.py's single
+NGP field and the per-expert and unshared MoE renders, on one NVIDIA
 GPU.
 
     python3 chip_smoke.py
@@ -124,9 +125,34 @@ CPU fallback):
      runs' median train rays/s, the phase's launch counts (reset before
      its first scene, read after its last run; brick3_table_grad exactly
      4 per step), its seconds and the nvidia-smi line;
- 11. a JSON line with every kernel's check, launches (per phase), times
+ 11. the single field and the expert renders: (a) train.py's entry point
+     (radnerf_tpu_torch.train.main without --moe_training) with
+     base_TAT.sh's options (T=2^19, batch 8192, lr 1e-2, auto = brick3,
+     bf16) on phase 9's scene with phase 9's cuts: the untrained field
+     validated, ENTRY_EPOCHS epochs of ENTRY_STEPS steps (test PSNR up
+     by more than 3 dB, checkpoints without a gate), one more epoch
+     resumed with --resume auto and --ckpt_backend orbax (its checkpoint
+     written in the background must load, at the right step), the oracle
+     without --moe_training within 1e-3 dB of that validation; launch
+     counts reset before and read after (brick3_table_grad exactly 4 per
+     step; kernels 1 and 2 launched); (b) the single field card vs CPU:
+     a CHUNK-ray render_test chunk of test view 0 (CPU_TOL), and one
+     step-0 microbatch of 2048 rays of a fresh field on phase 5's ray
+     store (TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GRAD_RTOL), one step of it
+     profiled; (c) the MoE at zoo=2 and full width on phase 5's ray store
+     with rad_TAT.sh's ZOO=2 options, EXPERT_STEPS steps each of the
+     shared table without union sampling (each expert its own march, one
+     encode of both sample sets) and of unshared_MNGP (two f32 (16, 2^19,
+     2) tables, 128 MiB): losses finite, training PSNR up by more than
+     3 dB, exact launch counts (brick3_table_grad 4 per step shared, 8
+     unshared), one step profiled, a 256-ray card-vs-CPU step and a
+     256-ray ml_render_test chunk card vs CPU; (d) the port's
+     examples/smoke_e2e.py at its defaults (its own check: PSNR up by
+     more than 5 dB; tcnn_table_grad once per step). Printed: the median
+     train rays/s, each part's seconds and the nvidia-smi line;
+ 12. a JSON line with every kernel's check, launches (per phase), times
      and bound;
- 12. the last line: {"ok": true, "device": {...}}.
+ 13. the last line: {"ok": true, "device": {...}}.
 
 Phase 4 also renders 256 rays with hash_impl 'dedup' on the card and on
 the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
@@ -157,11 +183,13 @@ from radnerf_tpu_torch.data.ray_utils import get_ray_directions
 from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
 from radnerf_tpu_torch.examples import profile_step
 from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
+from radnerf_tpu_torch.examples import smoke_e2e
 from radnerf_tpu_torch.models.gates import init_ray_gate
 from radnerf_tpu_torch.models.mlp import layer_tap
 from radnerf_tpu_torch.models.mngp import MNGPConfig, init_mngp, init_mngp_state
 from radnerf_tpu_torch.models.ngp import (
-    all_cell_coords, cell_world_positions, scene_center_half,
+    NGPConfig, all_cell_coords, cell_world_positions, init_ngp,
+    init_ngp_state, scene_center_half,
 )
 from radnerf_tpu_torch.ops import hashgrid_brick, hashgrid_slab
 from radnerf_tpu_torch.ops.compositing import composite_train_flat
@@ -300,6 +328,20 @@ DS_VIEWS = 27                   # every 9th a test view: 24 train, 3 test
 DS_SCANNET, DS_EYEFUL = 0.25, 0.25       # --downsample (scripts: 0.5, 1)
 SCANNET_VIEWS, SCANNET_INF = 33, 5       # one pose inf: 30 train, 2 test
 DS_EPOCHS, DS_SHORT_STEPS = 2, 16
+# phase 11, the single field and the expert renders: base_TAT.sh's options
+# (train.py without --moe_training) on phase 9's scene, with phase 9's
+# cuts; then the per-expert and unshared MoE renders trained EXPERT_STEPS
+# steps each on phase 5's ray store; then smoke_e2e at its defaults
+SINGLE_ARGS = ("--dataset_type", "nsvf", "--dataset_name", "TanksAndTemple",
+               "--scene_name", "Sphere", "--downsample", "0.1",
+               "--scale", "0.5", "--batch_size", "8192", "--lr", "1e-2",
+               "--hash_table_size", "19", "--steps_per_epoch",
+               str(ENTRY_STEPS))
+# 48 steps left unshared_MNGP's training PSNR 2.54 dB up (the per-expert
+# render 3.44; this phase at 48 steps on an H100): each table learns from
+# its own expert's gated gradient only; 64 steps
+EXPERT_STEPS = 64
+SMOKE_STEPS = 300                # examples/smoke_e2e.py's default
 FAMILY_KERNELS = {"brick3": "brick3_table_grad",
                   "dedup": "tcnn_table_grad", "slab": "slab_table_grad",
                   "brick": "brick_table_grad", "pallas": "tcnn_table_grad"}
@@ -1528,8 +1570,9 @@ def probe_diffs(card: StepProbe, cpu: StepProbe) -> dict:
 
 
 def cpu_step(trainer, cfg, batch, where, probe: StepProbe | None = None):
-    """One CPU_RAYS-ray step of the trainer's parameters and state on
-    `where` under cfg: (loss, aux, gradient leaves on the CPU)."""
+    """One step of the batch's rays from the trainer's parameters and
+    state on `where` under cfg: (loss, aux, gradient leaves on the
+    CPU)."""
     move = lambda t: t.detach().to(where)
     bundle = tree_unflatten(trainer.bundle,
                             [move(p) for p in tree_leaves(trainer.bundle)])
@@ -1552,13 +1595,15 @@ def cpu_step(trainer, cfg, batch, where, probe: StepProbe | None = None):
 def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
                  loss_rtol: float = TRAIN_CPU_LOSS_RTOL,
                  grad_rtol: float = TRAIN_CPU_GRAD_RTOL,
-                 label: str = "train", pin_forward: bool = False) -> dict:
-    """One 256-ray step at full width on the card and on the CPU (plain
-    versions) from the trainer's parameters and state and the same draws
-    (seed 3), under `cfg` (default the trainer's): sample counts, loss and
-    every gradient leaf, each leaf reported by its path with its worst
-    entry; the card's step launches the family's table-gradient kernel
-    once. With `pin_forward` (see TRAIN_CPU_GRAD_RTOL) the leaves are held
+                 label: str = "train", pin_forward: bool = False,
+                 rays: int = CPU_RAYS, grad_launches: int = 1) -> dict:
+    """One step of `rays` rays (256 by default) at full width on the card
+    and on the CPU (plain versions) from the trainer's parameters and
+    state and the same draws (seed 3), under `cfg` (default the
+    trainer's): sample counts, loss and every gradient leaf, each leaf
+    reported by its path with its worst entry; the card's step launches
+    the family's table-gradient kernel `grad_launches` times (once per
+    hash table it encodes with). With `pin_forward` (see TRAIN_CPU_GRAD_RTOL) the leaves are held
     against the CPU step that takes the card's forward (StepProbe), once
     the encode features are found equal and every MLP layer output within
     its two bf16 roundings of the CPU's, the gate's output layer at its
@@ -1575,12 +1620,13 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
     for seed in (3, *PIN_SEEDS) if pin_forward else (3,):
         batch = tt.sample_batch(
             torch.Generator(device=dev).manual_seed(seed), trainer.data,
-            CPU_RAYS)
+            rays)
         pg, pc = (StepProbe(), StepProbe()) if pin_forward else (None, None)
         before = kernels.launch_counts[kernel]
         lg, ag, gg = cpu_step(trainer, cfg, batch, dev, pg)
-        check(kernels.launch_counts[kernel] == before + 1,
-              f"{label}: the card step did not launch {kernel} once")
+        check(kernels.launch_counts[kernel] == before + grad_launches,
+              f"{label}: the card step did not launch {kernel} "
+              f"{grad_launches} times")
         lc, ac, gc = cpu_step(trainer, cfg, batch, cpu_dev, pc)
         leaves = leaf_report(paths, gg, gc)
         top = max(leaves, key=lambda r: r["ratio"])
@@ -1621,7 +1667,7 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
         worst = max(r["ratio"] for r in checked)
         report.append(rec)
         if seed == 3:
-            print(f"[{label}] card vs CPU plain, one {CPU_RAYS}-ray step "
+            print(f"[{label}] card vs CPU plain, one {rays}-ray step "
                   f"({cfg.hash_impl}, {cfg.compute_dtype}): loss {lg:.6f} "
                   f"vs {lc:.6f}, samples {ag['rm_samples']:.0f} vs "
                   f"{ac['rm_samples']:.0f}, worst gradient leaf max|diff| / "
@@ -1838,6 +1884,252 @@ def entry_runs(root: str, dev) -> dict:
             "vs_cpu": diffs, "rays_per_s": float(np.median(rates)),
             "rays_per_s_min": float(min(rates)),
             "rays_per_s_max": float(max(rates))}
+
+
+# ---------------------------------------------------------------- phase 11
+def single_args(root: str, exp: str, *extra) -> list:
+    return ["--root_dir", root, "--exp_name", exp, *SINGLE_ARGS, *extra]
+
+
+def single_runs(root: str, dev) -> dict:
+    """Phase 11a: train.py's single field through its entry point (see the
+    module docstring); returns its summary, its launch counts and the
+    resumed system (for the card-vs-CPU render)."""
+    from radnerf_tpu_torch.train.__main__ import main as train_main
+
+    run = os.path.join("TanksAndTemple", "Sphere")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    untrained = tt.NeRFSystem(get_opts(single_args(root, "untrained")),
+                              device=dev)
+    untrained.setup()
+    check(not untrained.moe and untrained.gate_params is None,
+          "train.py without --moe_training built a MoE")
+    psnr0 = untrained.validate(epoch=0)["psnr"]
+    untrained.close()
+    del untrained
+
+    secs = [[], []]
+    trained = train_main(single_args(root, "base", "--num_epochs",
+                                     str(ENTRY_EPOCHS)),
+                         device=dev, on_step=step_timer(secs[0]))
+    trained.close()
+    del trained
+    ckpts = os.path.join("ckpts", run, "base")
+    e = ENTRY_EPOCHS - 1
+    for name in (f"epoch={e}.ckpt", f"epoch={e}_slim.ckpt"):
+        check(os.path.exists(os.path.join(ckpts, name)), f"no {name}")
+    first = load_ckpt(os.path.join(ckpts, f"epoch={e}.ckpt"))
+    check("gate_params" not in first
+          and first["model_state"]["density_grid"].ndim == 2,
+          "the single field's checkpoint holds a gate or stacked grids")
+    with open(os.path.join("logs", run, "base", "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    psnr1 = [m["value"] for m in metrics if m["tag"] == "test/psnr"][-1]
+    n1 = ENTRY_EPOCHS * ENTRY_STEPS
+    print(f"[single] {n1} steps: test PSNR {psnr0:.3f} -> {psnr1:.3f} dB")
+    check(psnr1 >= psnr0 + 3.0, f"single test psnr {psnr0} -> {psnr1}")
+    check(len(secs[0]) == n1, f"{len(secs[0])} steps")
+
+    # one more epoch, resumed, its checkpoint written in the background
+    resumed = train_main(single_args(root, "base", "--num_epochs",
+                                     str(ENTRY_EPOCHS + 1), "--resume",
+                                     "auto", "--ckpt_backend", "orbax"),
+                         device=dev, on_step=step_timer(secs[1]))
+    check(resumed.ckpt_writer is not None, "no background writer")
+    resumed.close()
+    n2 = (ENTRY_EPOCHS + 1) * ENTRY_STEPS
+    with open(os.path.join("logs", run, "base", "log.txt")) as f:
+        log = f.read()
+    last_ckpt = os.path.join(ckpts, f"epoch={ENTRY_EPOCHS}.ckpt")
+    last = load_ckpt(last_ckpt)
+    check(f"epoch={ENTRY_EPOCHS - 1}.ckpt at step {n1}" in log
+          and len(secs[1]) == ENTRY_STEPS and int(last["step"]) == n2
+          and int(last["opt_state"]["count"]) == n2,
+          f"the resumed run did not continue at step {n1}")
+    with open(os.path.join("logs", run, "base", "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    psnr2 = [m["value"] for m in metrics
+             if m["tag"] == "test/psnr" and m["step"] == n2][-1]
+    got = oracle.main(single_args(root, "oracle", "--ckpt_path", last_ckpt),
+                      device=dev)
+    print(f"[single] resumed at step {n1} (--ckpt_backend orbax), epoch "
+          f"{ENTRY_EPOCHS} validated at {psnr2:.6f} dB; the oracle's render "
+          f"{got['psnr']:.6f} dB")
+    check(abs(got["psnr"] - psnr2) <= 1e-3, "single oracle psnr")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    mb = tt.TrainConfig().n_microbatch
+    check(launches["brick3_table_grad"] == mb * n2,
+          f"brick3_table_grad launched {launches['brick3_table_grad']} "
+          f"times, expected {mb * n2} ({mb} microbatches x {n2} steps)")
+    for name in ("brick3_encode_fwd", "occ_lookup"):
+        check(launches[name] > mb * n2, f"{name} launched {launches[name]}")
+    rates = [8192 / s for run_secs in secs for s in run_secs[16:]]
+    return {"launches": launches, "system": resumed, "steps": n2,
+            "psnr_untrained": psnr0, "psnr_trained": psnr1,
+            "psnr_resumed": psnr2, "psnr_oracle": got["psnr"],
+            "rays_per_s": float(np.median(rates)),
+            "rays_per_s_min": float(min(rates)),
+            "rays_per_s_max": float(max(rates))}
+
+
+def single_vs_cpu(system, store: dict, dev) -> dict:
+    """Phase 11b: the single field on the card against the CPU: a
+    CHUNK-ray render_test chunk of test view 0 from the resumed system
+    (CPU_TOL), and one step-0 microbatch (2048 rays) of a fresh field on
+    phase 5's ray store after its warmup grid update
+    (TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GRAD_RTOL)."""
+    ds = system.test_dataset
+    w, img_h = ds.img_wh
+    p0 = (img_h // 2) * w - CHUNK // 2
+    dirs = torch.from_numpy(ds.directions[p0:p0 + CHUNK])
+    pose = torch.from_numpy(ds.poses[0])
+    rcfg = system.trainer.rcfg
+    outs = [render_rays_chunked(
+        to_cpu(system.params) if d == "cpu" else system.params,
+        to_cpu(system.model_state) if d == "cpu" else system.model_state,
+        system.cfg, None, dirs.to(d), pose.to(d), rcfg, chunk=CHUNK)
+        for d in (dev, "cpu")]
+    diffs = {k: float((outs[0][k].cpu() - outs[1][k]).abs().max())
+             for k in CPU_TOL}
+    print(f"[single] card vs CPU plain, a {CHUNK}-ray render_test chunk of "
+          f"test view 0: max|diff| {diffs} (tolerance {CPU_TOL}); samples "
+          f"{outs[0]['total_samples']} vs {outs[1]['total_samples']}; "
+          f"covered {float((outs[1]['opacity'] > 0.01).float().mean()):.3f}")
+    for k, tol in CPU_TOL.items():
+        check(diffs[k] <= tol, f"single render card vs CPU {k}: {diffs[k]}")
+    check(outs[0]["total_samples"] == outs[1]["total_samples"],
+          "single render: card and CPU marched different samples")
+
+    cfg = NGPConfig(scale=0.5, compute_dtype="bfloat16", hash_impl="brick3")
+    gen = torch.Generator().manual_seed(1)
+    trainer = tt.Trainer(cfg, tt.TrainConfig(),
+                         init_ngp(gen, cfg, device=dev), None,
+                         init_ngp_state(cfg, device=dev), store,
+                         torch.Generator(device=dev).manual_seed(2))
+    trainer.update_grid(warmup=True)        # the state a first step sees
+    tcfg = trainer.tcfg
+    step = train_vs_cpu(trainer, label="single",
+                        rays=tcfg.batch_size // tcfg.n_microbatch)
+    profile = profile_call(
+        lambda: trainer.train_step(tt.sample_batch(
+            trainer.gen, trainer.data, tcfg.batch_size)),
+        f"one single-field training step ({tcfg.batch_size} rays, "
+        f"{tcfg.n_microbatch} microbatches, budget "
+        f"{trainer.rcfg.budget_per_ray})")
+    return {"render": diffs, "step": step, "profile": profile}
+
+
+def expert_runs(cfg: MNGPConfig, store: dict, dev) -> tuple:
+    """Phase 11c: the shared encoder without union sampling (each expert
+    its own march, one encode of both sample sets) and unshared_MNGP (a
+    table per expert), EXPERT_STEPS steps each from new_trainer's seeds;
+    exact launch counts, PSNR rising, a 256-ray card-vs-CPU step, and a
+    256-ray ml_render_test chunk card vs CPU. Returns ({path: launch
+    counts}, {path: summary})."""
+    launches, summaries = {}, {}
+    for label, cfg_k, rkw in (
+            ("per_expert", cfg, {"union_sampling": False}),
+            ("unshared", dataclasses.replace(cfg, shared_encoder=False),
+             {})):
+        t0 = time.perf_counter()
+        trainer = new_trainer(cfg_k, store, dev)
+        trainer.rcfg = dataclasses.replace(trainer.rcfg, **rkw)
+        n_tables = 1 if cfg_k.shared_encoder else cfg_k.n_experts
+        launches[label], summary = fit(trainer, EXPERT_STEPS, label)
+        check(summary["psnr_last"] > summary["psnr_first"] + 3.0,
+              f"{label} psnr did not rise: {summary}")
+        mb = trainer.tcfg.n_microbatch
+        K, C = cfg_k.n_experts, cfg_k.cascades
+        n_updates = -(-EXPERT_STEPS // tt.UPDATE_INTERVAL)
+        want = {name: 0 for name in launches[label]}
+        want["occ_lookup"] = K * mb * EXPERT_STEPS
+        want["brick3_table_grad"] = n_tables * mb * EXPERT_STEPS
+        want["brick3_encode_fwd"] = (n_tables * mb * EXPERT_STEPS
+                                     + n_updates * K * C)
+        check(launches[label] == want,
+              f"{label} launches {launches[label]}, expected {want}")
+        summary["profile"] = profile_call(
+            lambda: trainer.train_step(tt.sample_batch(
+                trainer.gen, trainer.data, trainer.tcfg.batch_size)),
+            f"one {label} training step ({trainer.tcfg.batch_size} rays, "
+            f"{mb} microbatches, budget {trainer.rcfg.budget_per_ray})")
+        summary["vs_cpu"] = train_vs_cpu(trainer, label=label,
+                                         grad_launches=n_tables)
+        pose = store["poses"][0]
+        p0 = (STORE_SIDE // 2) * STORE_SIDE - CPU_RAYS // 2
+        dirs = store["directions"][p0:p0 + CPU_RAYS]
+        outs = [render_rays_chunked(
+            *(to_cpu(x) if d == "cpu" else x for x in (
+                trainer.bundle["model"], trainer.model_state)),
+            cfg_k, to_cpu(trainer.bundle["gate"]) if d == "cpu"
+            else trainer.bundle["gate"], dirs.to(d), pose.to(d),
+            trainer.rcfg, chunk=CPU_RAYS) for d in (dev, "cpu")]
+        diffs = {k: float((outs[0][k].cpu() - outs[1][k]).abs().max())
+                 for k in CPU_TOL}
+        print(f"[{label}] card vs CPU plain, a {CPU_RAYS}-ray ml_render_test "
+              f"chunk of camera 0: max|diff| {diffs} (tolerance {CPU_TOL}); "
+              f"samples {outs[0]['total_samples']} vs "
+              f"{outs[1]['total_samples']}")
+        for k, tol in CPU_TOL.items():
+            check(diffs[k] <= tol, f"{label} render card vs CPU {k}")
+        check(outs[0]["total_samples"] == outs[1]["total_samples"],
+              f"{label} render: card and CPU marched different samples")
+        summary["render_vs_cpu"] = diffs
+        summary["phase_seconds"] = time.perf_counter() - t0
+        summaries[label] = summary
+        del trainer
+    return launches, summaries
+
+
+def smoke_run() -> tuple:
+    """Phase 11d: radnerf_tpu_torch.examples.smoke_e2e at its JAX twin's
+    defaults (its own check: PSNR up by more than 5 dB); the dedup
+    family in float32, so tcnn_table_grad once per step."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = smoke_e2e.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    check(launches["tcnn_table_grad"] == SMOKE_STEPS
+          and launches["brick3_table_grad"] == 0,
+          f"smoke_e2e launches {launches}")
+    return launches, res
+
+
+def single_phase(cfg: MNGPConfig, store: dict, dev, smi: str) -> tuple:
+    """Phase 11 (see the module docstring). Returns ({path: launch
+    counts}, summary)."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_single_") as tmp:
+        root = write_tanks_scene(tmp, cfg, dev)
+        cwd = os.getcwd()
+        os.chdir(tmp)          # logs/, ckpts/, results/ go under tmp
+        try:
+            single = single_runs(root, dev)
+            system = single.pop("system")
+            single["vs_cpu"] = single_vs_cpu(system, store, dev)
+            del system
+        finally:
+            os.chdir(cwd)
+    launches = {"single": single.pop("launches")}
+    t1 = time.perf_counter()
+    single["seconds"] = t1 - t_phase
+    print(f"[single] {single['seconds']:.1f} s; train rays/s median "
+          f"{single['rays_per_s']:.0f} (steps after the first 16 of each "
+          f"run); launches {launches['single']}; {smi}")
+    expert_launches, experts = expert_runs(cfg, store, dev)
+    launches.update(expert_launches)
+    launches["smoke_e2e"], smoke = smoke_run()
+    summary = {"single": single, **experts, "smoke_e2e": smoke,
+               "seconds": time.perf_counter() - t_phase}
+    print(f"[single] phase 11 in {summary['seconds']:.1f} s (the single "
+          f"field {single['seconds']:.1f} s, per_expert "
+          f"{experts['per_expert']['phase_seconds']:.1f} s, unshared "
+          f"{experts['unshared']['phase_seconds']:.1f} s, smoke_e2e "
+          f"{smoke['seconds']:.1f} s); {smi}")
+    return launches, summary
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2441,7 +2733,13 @@ def main() -> None:
     phase_launches["datasets"], summary_ds = datasets_phase(dev, smi)
     print(json.dumps({"datasets": summary_ds}))
 
-    # 11. kernels line: per kernel and contract, the launches of the path
+    # 11. the single field (train.py's entry point), the per-expert and
+    # unshared MoE renders, and smoke_e2e
+    launches_11, summary_11 = single_phase(cfg, store, dev, smi)
+    phase_launches.update(launches_11)
+    print(json.dumps({"single_and_experts": summary_11}))
+
+    # 12. kernels line: per kernel and contract, the launches of the path
     # that runs it (its training phase, or the examples'; every phase's
     # counts, the entry point's among them, under launches_by_path); ms, plain, library and bound at a
     # training step 0 microbatch, the shape of most launches (the
@@ -2489,7 +2787,8 @@ def main() -> None:
         n_launch = phase_launches[path][name]
         check(n_launch > 0, f"kernel {name} not launched on {path}")
         if path == "train_brick3":       # rows 1-3: the entry points' too
-            for entry in ("entry", "datasets"):
+            for entry in ("entry", "datasets", "single", "per_expert",
+                          "unshared"):
                 check(phase_launches[entry][name] > 0,
                       f"kernel {name} not launched on {entry}")
         runs = train_checks.get(key, []) + [

@@ -10,12 +10,14 @@ caller passes `device="cpu"`. Every op runs where its input tensors live:
 on CPU tensors a kernel's wrapper takes its plain PyTorch version, on CUDA
 tensors it launches the kernel.
 
-Ported so far: the Rad-NeRF MoE test-time render (`render.ml_render.
-ml_render_test`) and one MoE training step with its density-grid update
-(`train.trainer.Trainer`), both with union sampling and the flat layout,
-in bfloat16 or float32, with every hash-grid family that `hash_impl`
-selects (`ops.hashgrid.encode_dispatch`: the tcnn hash, slab, brick,
-brick3).
+Ported so far, on the flat sample layout, in bfloat16 or float32, with
+every hash-grid family that `hash_impl` selects (`ops.hashgrid.
+encode_dispatch`: the tcnn hash, slab, brick, brick3): the Rad-NeRF MoE
+render and training step (`render.ml_render`, `train.trainer.Trainer`)
+with union sampling, per-expert marches or a hash table per expert; the
+single NGP field (`render.render`); the entry points of train_ml.py,
+train.py and oracle.py with every dataset loader (`train_ml`, `train`,
+`oracle`); and the measurement scripts of examples/ (`examples`).
 """
 
 DEFAULT_DEVICE = "cuda"

@@ -1,9 +1,13 @@
 """Loss layer (twin of radnerf_tpu/losses.py): a dict of per-element
 losses whose means the trainer sums.
 
-The MoE render returns its flat buffers per expert (ws, deltas, ts,
-valid, ray_id, offsets, cap, each (K, ...)), so the distortion loss (off
-at the default weight 0) is the mean over experts of the flat loss.
+The single field's render returns its flat buffers (ws, deltas, ts,
+valid, ray_id, offsets, cap) as they are, and its depth (N,); the MoE
+render returns them per expert, each (K, ...), its depth (N, K) and the
+gate. The distortion loss (off at the default weight 0) is the flat loss,
+or its mean over experts. The gate's terms need a gate of more than one
+expert. `lambda_disp` is accepted, as in the reference's signature; no
+render returns a disparity, so it adds no term (there neither).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ def nerf_loss(
     target: dict,
     lambda_opacity: float = 1e-3,
     lambda_distortion: float = 0.0,
+    lambda_disp: float = 0.0,
     lambda_cv_importance: float = 0.0,
     lambda_depth_mutual: float = 0.0,
 ) -> dict:

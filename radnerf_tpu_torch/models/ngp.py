@@ -1,14 +1,27 @@
-"""NGP field configuration and occupancy-grid maintenance (twin of
-radnerf_tpu/models/ngp.py without the single-NGP field)."""
+"""The NGP field (twin of radnerf_tpu/models/ngp.py): a multiresolution
+hash encoding and two small MLPs (geo: features -> sigma and 16 geo
+features; rgb: SH directions and geo features -> colour), and the
+occupancy grid it keeps. Trainable parameters (hash table, geo and rgb
+MLPs) and the state (density grid, occupancy, bbox) are separate dicts of
+tensors."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
-from ..ops.hashgrid import HashGridConfig
+from .. import DEFAULT_DEVICE
+from ..ops.hashgrid import (
+    HashGridConfig, encode_dispatch, incoherent_impl, init_hashgrid_table,
+    uses_brick3,
+)
+from ..ops.hashgrid_brick3 import pack_brick3_table
+from ..ops.sh import sh_encode_dir
+from ..ops.trunc_exp import trunc_exp
+from .mlp import apply_mlp, init_mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,10 +73,103 @@ class NGPConfig:
         return torch.float32
 
 
+def init_ngp(gen: torch.Generator, cfg: NGPConfig,
+             device=DEFAULT_DEVICE) -> dict:
+    """Hash table, then the geo MLP, then the rgb MLP, all drawn from
+    `gen`."""
+    return {
+        "hash_table": init_hashgrid_table(gen, cfg.hash, device=device),
+        "geo": init_mlp(gen, cfg.feat_dim, cfg.geo_hidden, 1 + cfg.geo_out,
+                        cfg.geo_layers, device=device),
+        "rgb": init_mlp(gen, cfg.rgb_in_dim, cfg.rgb_hidden, 3,
+                        cfg.rgb_layers, device=device),
+    }
+
+
+def scene_box(cfg: NGPConfig, bbox: np.ndarray | None = None):
+    """(xyz_min, xyz_max) float32: [-scale, scale]^3, or `bbox` (2, 3)."""
+    if bbox is None:
+        return (-np.ones(3, np.float32) * cfg.scale,
+                np.ones(3, np.float32) * cfg.scale)
+    return np.asarray(bbox[0], np.float32), np.asarray(bbox[1], np.float32)
+
+
+def init_ngp_state(cfg: NGPConfig, bbox: np.ndarray | None = None,
+                   device=DEFAULT_DEVICE) -> dict:
+    """The density grid (C, G^3), the occupancy (C, G, G, G) and the scene
+    bbox (`bbox` (2, 3) overrides [-scale, scale]^3)."""
+    C, G = cfg.cascades, cfg.grid_size
+    xyz_min, xyz_max = scene_box(cfg, bbox)
+    return {
+        "density_grid": torch.zeros((C, G**3), device=device),
+        "occ": torch.zeros((C, G, G, G), dtype=torch.bool, device=device),
+        "xyz_min": torch.as_tensor(xyz_min, device=device),
+        "xyz_max": torch.as_tensor(xyz_max, device=device),
+    }
+
+
 def scene_center_half(state: dict) -> tuple[torch.Tensor, torch.Tensor]:
     center = (state["xyz_min"] + state["xyz_max"]) * 0.5
     half = (state["xyz_max"] - state["xyz_min"]) * 0.5
     return center, half
+
+
+def pack_table(table: torch.Tensor, cfg: NGPConfig,
+               impl: str | None = None) -> torch.Tensor | None:
+    """`table` packed once for many encodes of `impl` (default
+    cfg.hash_impl): pack_brick3_table when the encode is brick3's, None
+    for every other family (they take the (L, T, 2) table as it is)."""
+    if uses_brick3(impl or cfg.hash_impl, cfg.cdtype):
+        return pack_brick3_table(table)
+    return None
+
+
+def encode_positions(table: torch.Tensor, state: dict, cfg: NGPConfig,
+                     x: torch.Tensor, impl: str | None = None,
+                     packed: torch.Tensor | None = None) -> torch.Tensor:
+    """World positions (N, 3) -> (N, L*2) hash features of `table`
+    through encode_dispatch (differentiable in the table: each family's
+    backward is its table-gradient kernel); `packed` is pack_table's
+    table, for callers that encode many batches."""
+    xn = (x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
+    xn = xn.clamp(0.0, 1.0)
+    return encode_dispatch(table, xn, cfg.hash, cfg.cdtype,
+                           impl or cfg.hash_impl, packed=packed)
+
+
+def field_heads(geo: dict, rgb: dict, feat: torch.Tensor,
+                d: torch.Tensor, cfg: NGPConfig):
+    """(sigma (N,), rgb (N, 3) float32) from hash features (N, L*2) and
+    directions (N, 3), through one geo and one rgb MLP."""
+    h = apply_mlp(geo, feat, compute_dtype=cfg.cdtype)
+    d_enc = sh_encode_dir(d, cfg.sh_degree).to(cfg.cdtype)
+    rgbs = apply_mlp(rgb, torch.cat([d_enc, h[:, 1:]], dim=-1),
+                     out_act=cfg.rgb_act.lower(), compute_dtype=cfg.cdtype)
+    return trunc_exp(h[:, 0]), rgbs.to(torch.float32)
+
+
+def ngp_density(params: dict, state: dict, cfg: NGPConfig, x: torch.Tensor,
+                return_feat: bool = False, impl: str | None = None,
+                packed: torch.Tensor | None = None):
+    """sigma(x) for world positions x (N, 3), and the geo features (N, 16)
+    if asked; `impl` overrides cfg.hash_impl (the grid update passes
+    incoherent_impl), `packed` as in encode_positions."""
+    feat = encode_positions(params["hash_table"], state, cfg, x, impl,
+                            packed)
+    h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
+    sigmas = trunc_exp(h[:, 0])
+    if return_feat:
+        return sigmas, h[:, 1:]
+    return sigmas
+
+
+def ngp_forward(params: dict, state: dict, cfg: NGPConfig, x: torch.Tensor,
+                d: torch.Tensor, packed: torch.Tensor | None = None):
+    """(sigma (N,), rgb (N, 3) float32) at positions x and directions d,
+    both (N, 3)."""
+    feat = encode_positions(params["hash_table"], state, cfg, x,
+                            packed=packed)
+    return field_heads(params["geo"], params["rgb"], feat, d, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +253,7 @@ def update_density_grid(
     gen: torch.Generator | None,
     density_threshold: float,
     warmup: bool,
-    density_fn,
+    density_fn=None,
     decay: float = 0.95,
     draws: list | None = None,
 ) -> dict:
@@ -156,9 +262,17 @@ def update_density_grid(
     Warmup: every cell of every cascade, once. Otherwise G^3/4 uniform +
     G^3/4 occupied cells per cascade, drawn with replacement; a cell drawn
     twice is set by one of its draws (which one is not fixed, as in the
-    reference's scatter-set). `draws[c]` holds cascade c's explicit draws:
-    "jitter" (n, 3) in [-1, 1), and outside warmup the `_sample_cells`
-    draws."""
+    reference's scatter-set). `density_fn(x)` gives the densities (an
+    ensemble passes its expert's); by default the field's own, through
+    incoherent_impl(cfg.hash_impl), the plain-forward variant of the
+    family (grid cells are spatially incoherent), on a table packed once
+    for the update. `draws[c]` holds cascade c's explicit draws: "jitter"
+    (n, 3) in [-1, 1), and outside warmup the `_sample_cells` draws."""
+    if density_fn is None:
+        impl = incoherent_impl(cfg.hash_impl)
+        packed = pack_table(params["hash_table"], cfg, impl)
+        density_fn = lambda x: ngp_density(params, state, cfg, x, impl=impl,
+                                           packed=packed)
     C, G = cfg.cascades, cfg.grid_size
     grid = state["density_grid"]
     tmp = torch.zeros_like(grid)

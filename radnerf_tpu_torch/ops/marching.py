@@ -1,6 +1,6 @@
 """Occupancy-grid ray marching on the closed-form sample lattice (twin of
-the flat-layout half of radnerf_tpu/ops/marching.py: the test-time march
-and the training-time union march).
+the flat-layout half of radnerf_tpu/ops/marching.py: the test-time march,
+and the training-time marches of one grid and of the union of K grids).
 
 The CUDA marcher's step schedule t_{k+1} = t_k + clamp(t_k * f, dt_min,
 dt_max) is a deterministic lattice of the start t, so a block of K
@@ -349,6 +349,30 @@ def _lattice_candidates(rays_o, rays_d, t1, t2, cfg: MarchConfig, noise):
     in_range = (t1[:, None] >= 0) & (t >= 0) & (t < t2[:, None])
     xyz = fma32(t[..., None], rays_d[:, None, :], rays_o[:, None, :])
     return t, dt, xyz, in_range
+
+
+def march_rays_train_flat(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    t1: torch.Tensor,
+    t2: torch.Tensor,
+    occ_grid: torch.Tensor,
+    cfg: MarchConfig,
+    noise: torch.Tensor | None = None,
+    budget_per_ray: int = 64,
+) -> dict:
+    """Training-time march of one occupancy grid into the flat (static-CSR)
+    buffer of B = N * budget_per_ray slots: each ray's occupied lattice
+    candidates (at most cfg.samples_per_ray), front-truncated to
+    floor(n_r * B / total) when they overflow the buffer, rays contiguous.
+    Returns ts/deltas/ray_id/valid (B,), offsets/cap/n_samples (N,) and
+    total."""
+    t, dt, xyz, in_range = _lattice_candidates(
+        rays_o, rays_d, t1, t2, cfg, noise
+    )
+    keep = in_range & occupancy_lookup_bricks(xyz, dt, occ_grid, cfg)
+    m, _ = _compact_flat_from_keep(t, dt, keep, cfg, budget_per_ray)
+    return m
 
 
 def march_rays_union_flat(

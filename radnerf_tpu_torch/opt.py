@@ -2,9 +2,10 @@
 and defaults, so that the reference's shell scripts translate
 mechanically).
 
-Flags whose paths the port has not ported yet are accepted here and
-refused by `train.trainer.NeRFSystem` with a NotImplementedError that
-names the ROADMAP.md item.
+Three flags whose paths the port has not ported yet (--layout dense,
+--num_devices above 1, --multihost) are accepted here and refused by
+`train.trainer.NeRFSystem` with a NotImplementedError that names the
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -164,8 +165,14 @@ def get_parser() -> argparse.ArgumentParser:
                      help='join a multi-host job before building the mesh')
     dev.add_argument('--ckpt_backend', type=str, default='pickle',
                      choices=['pickle', 'orbax'],
-                     help='full-checkpoint format: single-file pickle or '
-                          'async orbax directory')
+                     help='how full checkpoints are written: pickle, '
+                          'in the training loop; orbax, the same single-'
+                          'file pickle at the same path written by a '
+                          'background thread (values copied to the host '
+                          'first, one write in flight; the slim export, '
+                          'the next save and the end of the run wait for '
+                          'it). The port has no orbax: it writes and '
+                          'reads no orbax directory')
     dev.add_argument('--profile_steps', type=int, default=0,
                      help='capture a profiler trace for this many steps '
                           '(starting at step 10) into the log dir')

@@ -5,6 +5,9 @@ images and prints mean PSNR / SSIM where there is ground truth.
     python -m radnerf_tpu_torch.oracle --root_dir ... --dataset_type nsvf \
         --split test --ckpt_path ckpts/.../epoch=19.ckpt --moe_training \
         --model_zoo_size 2
+
+renders a MoE checkpoint; without --moe_training, a single field's
+(train.py's).
 """
 
 from __future__ import annotations

@@ -1,14 +1,18 @@
-"""Rad-NeRF MoE render, training and test time (twin of the union-flat
-paths of radnerf_tpu/render/ml_render.py).
+"""Rad-NeRF MoE render, training and test time (twin of the flat-layout
+paths of radnerf_tpu/render/ml_render.py), and the chunked camera render
+of the validation loop (MoE or single field).
 
 Gate the rays, render the K sub-NeRFs, gate-compose. With a shared
 encoder, union sampling and the flat layout, the rays are marched ONCE
 against the union of the experts' occupancy grids and hash-encoded ONCE;
 each expert masks sigma to its own membership (a non-member sample has
-alpha 0, as if never marched). Training composites the one union buffer
-per expert; test time loops, each expert keeping its own resumable
-compositing carry. The reference's `lax.while_loop` is a Python loop
-whose condition is read back from the device once per iteration.
+alpha 0, as if never marched). Without union sampling, each expert
+marches its own grid (with the start jitter shifted by k/K) and the K
+sample sets share one encode; with one hash table per expert
+(shared_encoder=False), each expert renders as a single field. Test time
+loops, each expert keeping its own resumable compositing carry; the
+reference's `lax.while_loop` is a Python loop whose condition is read
+back from the device once per iteration.
 """
 
 from __future__ import annotations
@@ -18,18 +22,29 @@ import math
 import torch
 
 from ..models.gates import apply_ray_gate
-from ..models.mlp import apply_mlp
-from ..models.mngp import MNGPConfig, _encode, pack_for_encode
+from ..models.mlp import apply_mlp, slice_stacked
+from ..models.mngp import (
+    MNGPConfig, _encode, expert_forward_fn, expert_tables, pack_for_encode,
+)
 from ..models.ngp import scene_center_half
 from ..ops.compositing import composite_test_flat, composite_train_flat
 from ..ops.fma import fma32
 from ..ops.intersection import scene_near_far
 from ..ops.marching import (
-    march_rays_test_flat, march_rays_union_flat, occupancy_lookup,
+    march_rays_test_flat, march_rays_train_flat, march_rays_union_flat,
+    occupancy_lookup,
 )
 from ..ops.sh import sh_encode_dir
 from ..ops.trunc_exp import trunc_exp
-from .render import NEAR_DISTANCE, RenderConfig, background_color
+from .render import (
+    DENSE_LAYOUT, NEAR_DISTANCE, RenderConfig, background_color,
+    render_test, render_train,
+)
+
+
+def _stack_results(results: list) -> dict:
+    """Per-expert result dicts stacked on a leading (K, ...) axis."""
+    return {k: torch.stack([r[k] for r in results]) for k in results[0]}
 
 
 def _gate_input(rays_o, rays_d, imgs_d, gate_type: str) -> torch.Tensor:
@@ -107,6 +122,56 @@ def _expert_samples_union_flat(
     }
 
 
+def _expert_samples_per_expert_flat(
+    params, state, cfg: MNGPConfig, rays_o, rays_d, rcfg: RenderConfig,
+    noises: torch.Tensor, gen: torch.Generator | None = None,
+) -> dict:
+    """Per-expert training render with a shared encoder: each expert
+    marches its own grid (noises[k] its start jitter), then ONE hash
+    encode of the K x B samples, per-expert MLPs and flat compositing,
+    and one background per expert."""
+    K = cfg.n_experts
+    dev = rays_o.device
+    center, half = scene_center_half(state)
+    ro, rd = rays_o.detach(), rays_d.detach()      # as in the union render
+    t1, t2 = scene_near_far(ro, rd, center, half, NEAR_DISTANCE)
+    mcfg = rcfg.march(cfg)
+    ms = [march_rays_train_flat(ro, rd, t1, t2, state["occ"][k], mcfg,
+                                noises[k], budget_per_ray=rcfg.budget_per_ray)
+          for k in range(K)]
+    m = _stack_results(ms)                          # (K, B) / (K, N)
+    rid = m["ray_id"].reshape(-1).long()
+    xyz = fma32(m["ts"].reshape(-1)[:, None], rays_d[rid], rays_o[rid])
+    B = m["ts"].shape[1]                                        # (K*B, 3)
+
+    feat = _encode(params, state, cfg, xyz).reshape(K, B, -1)   # ONCE
+    h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
+    d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
+    d_enc = d_enc_ray[rid].reshape(K, B, -1)
+    rgbs = apply_mlp(
+        params["rgb"], torch.cat([d_enc, h[..., 1:]], dim=-1),
+        out_act=cfg.rgb_act.lower(), compute_dtype=cfg.cdtype,
+    ).to(torch.float32)                                         # (K, B, 3)
+    sigmas = trunc_exp(h[..., 0])
+    out = _stack_results([
+        composite_train_flat(
+            sigmas[k], rgbs[k], m["deltas"][k], m["ts"][k],
+            m["ray_id"][k], m["offsets"][k], m["cap"][k], m["valid"][k],
+            T_threshold=rcfg.T_threshold)
+        for k in range(K)])
+    bgs = torch.stack([background_color(rcfg, gen, dev) for _ in range(K)])
+    return {
+        "rgb": out["rgb"] + bgs[:, None, :] * (1.0 - out["opacity"][..., None]),
+        "depth": out["depth"],
+        "opacity": out["opacity"],
+        "ws": out["ws"],
+        **{k: m[k] for k in ("ts", "deltas", "valid", "n_samples", "ray_id",
+                             "offsets", "cap")},
+        "rm_samples": m["total"].sum(),
+        "total_samples": out["vr_samples"].sum(),
+    }
+
+
 def ml_render_train(
     params: dict,
     state: dict,
@@ -121,28 +186,51 @@ def ml_render_train(
     gen: torch.Generator | None = None,
 ) -> dict:
     """Training-time MoE render of (N, 3) rays, differentiable in params
-    and gate_params. `noise` (N,) is the per-ray start jitter in [0, 1),
-    drawn from `gen` when not given. Returns rgb (N, 3), depth (N, K),
-    opacity (N,), gating_code (N, K), gating_importance (K,),
-    independent_rgbs (K, N, 3), the per-expert flat buffers (ws, deltas,
-    ts, valid, ray_id, offsets, cap), rm_samples, budget_util and
-    total_samples."""
-    if not (cfg.shared_encoder and rcfg.union_sampling
-            and rcfg.layout == "flat"):
-        raise NotImplementedError(
-            "the port trains shared_encoder + union_sampling + "
-            "layout='flat' only; the per-expert, unshared and dense "
-            "training paths are queued in ROADMAP.md"
-        )
+    and gate_params. `noise` (N,) is the per-ray start jitter in [0, 1):
+    the union render shares it, the per-expert renders shift it to
+    mod(noise + k/K, 1) for expert k; without it the jitter is drawn from
+    `gen` (K draws a ray on the per-expert renders), which also draws the
+    random backgrounds.
+
+    Returns rgb (N, 3), depth (N, K), opacity (N,), gating_code (N, K),
+    gating_importance (K,), independent_rgbs (K, N, 3), the per-expert
+    flat buffers (ws, deltas, ts, valid, ray_id, offsets, cap, each (K,
+    ...)), rm_samples, budget_util (the union buffer's share used; the
+    unshared renders' mean; 0 on the shared per-expert render, which
+    measures none, as in the reference) and total_samples."""
+    if rcfg.layout != "flat":
+        raise NotImplementedError(DENSE_LAYOUT)
+    K, N = cfg.n_experts, rays_o.shape[0]
+    dev = rays_o.device
     gate, importance, _ = apply_ray_gate(
         gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
         compute_dtype=cfg.cdtype,
     )
+    union = cfg.shared_encoder and rcfg.union_sampling
     if noise is None:
-        noise = torch.rand(rays_o.shape[0], generator=gen,
-                           device=rays_o.device)
-    res = _expert_samples_union_flat(params, state, cfg, rays_o, rays_d,
-                                     rcfg, noise, gen)
+        noise = torch.rand((N,) if union else (K, N), generator=gen,
+                           device=dev)
+    if noise.dim() == 1 and not union:
+        # per-expert jitter as cyclic shifts of the per-ray uniform
+        shift = torch.arange(K, dtype=torch.float32, device=dev)[:, None] / K
+        noise = torch.remainder(noise[None, :] + shift, 1.0)
+    if union:
+        res = _expert_samples_union_flat(params, state, cfg, rays_o, rays_d,
+                                         rcfg, noise, gen)
+    elif cfg.shared_encoder:
+        res = _expert_samples_per_expert_flat(params, state, cfg, rays_o,
+                                              rays_d, rcfg, noise, gen)
+    else:
+        # unshared_MNGP: K single-field renders, each with its own table
+        res = _stack_results([
+            render_train(
+                None, {**state, "occ": state["occ"][k]}, cfg, rays_o,
+                rays_d, rcfg,
+                forward_fn=expert_forward_fn(
+                    table, slice_stacked(params["geo"], k),
+                    slice_stacked(params["rgb"], k), state, cfg),
+                noise=noise[k], gen=gen)
+            for k, table in enumerate(expert_tables(params, cfg))])
     return {
         "rgb": torch.einsum("nk,knc->nc", gate, res["rgb"]),
         "depth": res["depth"].T,
@@ -151,8 +239,11 @@ def ml_render_train(
         "gating_importance": importance,
         "independent_rgbs": res["rgb"],
         **{k: res[k] for k in ("ws", "deltas", "ts", "valid", "ray_id",
-                               "offsets", "cap", "rm_samples",
-                               "budget_util", "total_samples")},
+                               "offsets", "cap")},
+        "rm_samples": res["rm_samples"].sum(),
+        "budget_util": (res["budget_util"].mean() if "budget_util" in res
+                        else torch.zeros((), device=dev)),
+        "total_samples": res["total_samples"].sum(),
     }
 
 
@@ -249,23 +340,39 @@ def ml_render_test(
     rcfg: RenderConfig,
     gate_type: str = "ray",
 ) -> dict:
-    """Test-time MoE render of (N, 3) rays. Returns rgb (N, 3), depth
-    (N, K), opacity (N,), gating_code (N, K), gating_importance (K,),
-    independent_rgbs (K, N, 3), total_samples, and iterations (the
-    while-loop count)."""
-    if not (cfg.shared_encoder and rcfg.union_sampling
-            and rcfg.test_layout == "flat"):
-        raise NotImplementedError(
-            "the port renders shared_encoder + union_sampling + "
-            "test_layout='flat' only; the per-expert and dense test paths "
-            "are queued in ROADMAP.md"
-        )
+    """Test-time MoE render of (N, 3) rays: the union render (shared
+    encoder, union sampling), else K single-field renders, one per
+    expert, each on its own grid, with the shared table or its own, packed
+    once per call. Returns rgb (N, 3), depth (N, K), opacity (N,),
+    gating_code (N, K), gating_importance (K,), independent_rgbs (K, N,
+    3), total_samples, and iterations (the loops' count, summed over the
+    experts' loops)."""
+    if rcfg.test_layout != "flat":
+        raise NotImplementedError(DENSE_LAYOUT)
     with torch.no_grad():
         gate, importance, _ = apply_ray_gate(
             gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
             compute_dtype=cfg.cdtype,
         )
-        res = _ml_test_union_flat(params, state, cfg, rays_o, rays_d, rcfg)
+        if cfg.shared_encoder and rcfg.union_sampling:
+            res = _ml_test_union_flat(params, state, cfg, rays_o, rays_d,
+                                      rcfg)
+        else:
+            packed = pack_for_encode(params, cfg)
+            if cfg.shared_encoder:
+                packed = [packed] * cfg.n_experts
+            outs = [
+                render_test(
+                    None, {**state, "occ": state["occ"][k]}, cfg, rays_o,
+                    rays_d, rcfg,
+                    forward_fn=expert_forward_fn(
+                        table, slice_stacked(params["geo"], k),
+                        slice_stacked(params["rgb"], k), state, cfg,
+                        packed=packed[k]))
+                for k, table in enumerate(expert_tables(params, cfg))]
+            res = {**_stack_results([{k: o[k] for k in (
+                "rgb", "depth", "opacity", "total_samples")} for o in outs]),
+                "iterations": sum(o["iterations"] for o in outs)}
     return {
         "rgb": torch.einsum("nk,knc->nc", gate, res["rgb"]),
         "depth": res["depth"].T,
@@ -273,7 +380,7 @@ def ml_render_test(
         "gating_code": gate,
         "gating_importance": importance,
         "independent_rgbs": res["rgb"],
-        "total_samples": res["total_samples"],
+        "total_samples": res["total_samples"].sum(),
         "iterations": res["iterations"],
     }
 
@@ -294,8 +401,8 @@ def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
 def render_rays_chunked(
     params: dict,
     state: dict,
-    cfg: MNGPConfig,
-    gate_params: dict,
+    cfg,
+    gate_params: dict | None,
     directions: torch.Tensor,
     pose: torch.Tensor,
     rcfg: RenderConfig,
@@ -305,8 +412,9 @@ def render_rays_chunked(
 ) -> dict:
     """Render one camera, as the trainer's validation loop does: chunks of
     `chunk` rays (the last one padded by repeating its final direction),
-    rays from `pose` (3, 4), and the gated consensus depth
-    sum_k depth_k * gate_k.
+    rays from `pose` (3, 4). With a gate, the MoE render (ml_render_test)
+    and the gated consensus depth sum_k depth_k * gate_k; with
+    gate_params None, the single field (render_test) and its own depth.
 
     Returns rgb (P, 3), depth (P,), opacity (P,) for the P directions,
     plus total_samples and iterations summed over chunks."""
@@ -324,14 +432,18 @@ def render_rays_chunked(
             dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
         poses_c = pose.expand(chunk, 3, 4)
         rays_o, rays_d = get_rays(dirs, poses_c)
-        imgs_d = get_rays(mean_dir.expand(chunk, 3), poses_c)[1]
-        out = ml_render_test(
-            params, state, cfg, gate_params, rays_o.contiguous(),
-            rays_d.contiguous(), imgs_d, rcfg, gate_type,
-        )
+        rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+        if gate_params is None:
+            out = render_test(params, state, cfg, rays_o, rays_d, rcfg)
+            d = out["depth"]
+        else:
+            imgs_d = get_rays(mean_dir.expand(chunk, 3), poses_c)[1]
+            out = ml_render_test(params, state, cfg, gate_params, rays_o,
+                                 rays_d, imgs_d, rcfg, gate_type)
+            d = (out["depth"] * out["gating_code"]).sum(dim=1)
         n = c1 - c0
         rgb.append(out["rgb"][:n])
-        depth.append((out["depth"] * out["gating_code"]).sum(dim=1)[:n])
+        depth.append(d[:n])
         opacity.append(out["opacity"][:n])
         total_samples += int(out["total_samples"])
         iterations += out["iterations"]

@@ -1,12 +1,15 @@
 """Training entry (twin of the top-level train.py):
 
-    python -m radnerf_tpu_torch.train --moe_training --root_dir ... \
-        --dataset_type nsvf --model_zoo_size 2 ...
+    python -m radnerf_tpu_torch.train --root_dir .../Ignatius \
+        --dataset_type nsvf --dataset_name TanksAndTemple \
+        --scene_name Ignatius --exp_name base --num_epochs 20 \
+        --batch_size 8192 --lr 1e-2 --scale 0.5
 
-With --moe_training it drives the same NeRFSystem as
-radnerf_tpu_torch.train_ml; without it, train.py trains a single NGP
-field, which the port refuses with NotImplementedError (ROADMAP.md queue
-1, item 5).
+(scripts/base_TAT.sh's run: the single NGP field, the Instant-NGP
+baseline). With --moe_training it trains the MoE, as
+radnerf_tpu_torch.train_ml does. Trains on the CUDA device; `main(...,
+device="cpu")` runs the same on the CPU with the kernels' plain
+versions.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from ..train_ml import run
 
 
 def main(argv=None, device=DEFAULT_DEVICE, on_step=None):
-    """Parse `argv` and `run` the system it names."""
+    """Parse `argv` and `run` the system it names (the MoE with
+    --moe_training, else the single field)."""
     return run(get_opts(argv), device, on_step)
 
 

@@ -1,19 +1,21 @@
-"""Rad-NeRF MoE training on one device (twin of
-radnerf_tpu/train/trainer.py): the training step and its loop
-(`Trainer`), and `NeRFSystem`, the shell of the entry points
-(train_ml.py, oracle.py) around it: data, epochs, validation, logging
-and checkpoints.
+"""Rad-NeRF training on one device (twin of radnerf_tpu/train/trainer.py):
+the training step and its loop (`Trainer`), and `NeRFSystem`, the shell
+of the entry points (train_ml.py, train.py, oracle.py) around it: data,
+epochs, validation, logging and checkpoints.
 
-The step: gate, one union march, one shared hash encode (the family of
-`MNGPConfig.hash_impl` and `compute_dtype`), per-expert MLPs and flat
-compositing, nerf_loss, backward, Adam (eps 1e-15) at the cosine
-learning rate. With --optimize_ext, per-image pose corrections
-(axis-angle dR, translation dT) refine each batch's cameras before its
-rays are cast, and take their own Adam group at a constant 1e-8 with
-optax's eps 1e-8. Beside it the density grids are updated every 16 steps
-(every cell below `warmup_steps`) and, with --adaptive_budget (the
-default), the flat-layout sample budget is re-picked from the measured
-buffer utilization. Batches are drawn on the device from a
+The MoE step (--moe_training): gate, the experts' render
+(ml_render_train: one union march and one shared hash encode by
+default), per-expert MLPs and flat compositing, nerf_loss, backward,
+Adam (eps 1e-15) at the cosine learning rate. Without --moe_training
+the single NGP field (train.py's Instant-NGP baseline): render_train,
+nerf_loss without the gate's terms, the same Adam. The hash family is
+the config's `hash_impl` and `compute_dtype`. With --optimize_ext,
+per-image pose corrections (axis-angle dR, translation dT) refine each
+batch's cameras before its rays are cast, and take their own Adam group
+at a constant 1e-8 with optax's eps 1e-8. Beside it the density grids
+are updated every 16 steps (every cell below `warmup_steps`) and, with
+--adaptive_budget (the default), the flat-layout sample budget is
+re-picked from the measured buffer utilization. Batches are drawn on the device from a
 device-resident ray store; the per-ray start jitter is drawn from a
 torch.Generator and travels in the batch.
 """
@@ -44,11 +46,16 @@ from ..models.gates import init_ray_gate
 from ..models.mngp import (
     MNGPConfig, init_mngp, init_mngp_state, mngp_update_density_grids,
 )
+from ..models.ngp import (
+    NGPConfig, init_ngp, init_ngp_state, update_density_grid,
+)
 from ..ops.hashgrid import hash_family, resolve_impl
 from ..parallel.step import make_train_step, tree_leaves
 from ..render.ml_render import get_rays, ml_render_train, render_rays_chunked
-from ..render.render import RenderConfig
-from ..utils.ckpt import load_ckpt, load_weights_into, save_ckpt, slim_ckpt
+from ..render.render import RenderConfig, render_train
+from ..utils.ckpt import (
+    AsyncCkptWriter, load_ckpt, load_weights_into, save_ckpt, slim_ckpt,
+)
 from ..utils.logging import MetricWriter, init_global_logger
 
 MAX_SAMPLES = 1024
@@ -84,7 +91,8 @@ def next_budget_bucket(
 
 
 def budget_buckets(n_experts: int) -> tuple:
-    """The bucket ladder, extended up to K x for the MoE union stream."""
+    """The bucket ladder, extended up to K x for the MoE union stream
+    (n_experts 1: the single field's ladder)."""
     return tuple(sorted(
         set(BUDGET_BUCKETS)
         | {b * k for b in (64, 80, 96) for k in range(2, n_experts + 1)}
@@ -120,7 +128,7 @@ class TrainConfig:
         return max(1, -(-self.batch_size // MICROBATCH_RAYS))
 
 
-def render_config(cfg: MNGPConfig, tcfg: TrainConfig) -> RenderConfig:
+def render_config(cfg: NGPConfig, tcfg: TrainConfig) -> RenderConfig:
     """The trainer's render settings: a constant-dt lattice and white
     background at scale <= 0.5 (else black, or random with random_bg),
     the flat layout, and a union budget governed by the bucket ladder
@@ -176,33 +184,38 @@ def apply_pose_refinement(poses: torch.Tensor, ext: dict,
 
 
 def loss_fn(bundle: dict, model_state: dict, batch: dict, data: dict,
-            cfg: MNGPConfig, rcfg: RenderConfig, tcfg: TrainConfig,
+            cfg: NGPConfig, rcfg: RenderConfig, tcfg: TrainConfig,
             gen: torch.Generator | None = None):
     """(loss, aux) of a batch {img_idxs, pix_idxs, noise} over the ray
     store `data` {rays, poses, directions, mean_dir}; bundle {model,
-    gate} and, with --optimize_ext, "ext" {dR, dT}, which refines the
-    batch's poses (the rays and the gate's image direction both see the
-    refined poses); `gen` draws the random backgrounds (rcfg.random_bg).
+    gate} (the MoE) or {model} (the single field) and, with
+    --optimize_ext, "ext" {dR, dT}, which refines the batch's poses (the
+    rays and the gate's image direction both see the refined poses);
+    `gen` draws the random backgrounds (rcfg.random_bg).
     aux: psnr, rm_samples, budget_util."""
     poses = data["poses"][batch["img_idxs"]]
     if "ext" in bundle:
         poses = apply_pose_refinement(poses, bundle["ext"],
                                       batch["img_idxs"])
     rays_o, rays_d = get_rays(data["directions"][batch["pix_idxs"]], poses)
-    imgs_d = get_rays(data["mean_dir"].expand(poses.shape[0], 3), poses)[1]
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
     target = {"rgb": data["rays"][batch["img_idxs"], batch["pix_idxs"]][:, :3]}
-    out = ml_render_train(
-        bundle["model"], model_state, cfg, bundle["gate"],
-        rays_o.contiguous(), rays_d.contiguous(), imgs_d, rcfg,
-        tcfg.gate_type, noise=batch["noise"], gen=gen,
-    )
-    ld = nerf_loss(
-        out, target,
-        lambda_opacity=tcfg.opacity_loss_w,
-        lambda_distortion=tcfg.distortion_loss_w,
-        lambda_cv_importance=tcfg.cv_loss_w,
-        lambda_depth_mutual=tcfg.depth_mutual_loss_w,
-    )
+    weights = dict(lambda_opacity=tcfg.opacity_loss_w,
+                   lambda_distortion=tcfg.distortion_loss_w)
+    if "gate" in bundle:
+        imgs_d = get_rays(data["mean_dir"].expand(poses.shape[0], 3),
+                          poses)[1]
+        out = ml_render_train(
+            bundle["model"], model_state, cfg, bundle["gate"], rays_o,
+            rays_d, imgs_d, rcfg, tcfg.gate_type, noise=batch["noise"],
+            gen=gen,
+        )
+        weights.update(lambda_cv_importance=tcfg.cv_loss_w,
+                       lambda_depth_mutual=tcfg.depth_mutual_loss_w)
+    else:
+        out = render_train(bundle["model"], model_state, cfg, rays_o, rays_d,
+                           rcfg, noise=batch["noise"], gen=gen)
+    ld = nerf_loss(out, target, **weights)
     aux = {
         "psnr": psnr_fn(out["rgb"], target["rgb"]),
         "rm_samples": out["rm_samples"].to(torch.float32),
@@ -226,23 +239,27 @@ def sample_batch(gen: torch.Generator, data: dict, batch_size: int) -> dict:
 
 
 class Trainer:
-    """The state of one MoE training run on one device: parameters
-    {model, gate} and, with --optimize_ext, "ext" (updated in place),
-    Adam, the density grids, the ray store and the generator of every
-    draw (on the ray store's device).
+    """The state of one training run on one device: parameters {model,
+    gate} (the MoE; gate_params None: {model}, the single field) and,
+    with --optimize_ext, "ext" (updated in place), Adam, the density
+    grids, the ray store and the generator of every draw (on the ray
+    store's device).
 
     One torch.optim.Adam holds two parameter groups, as the reference's
-    optax.multi_transform holds two Adams: group 0 the network {model,
-    gate} (eps 1e-15, the cosine schedule), group 1 the pose corrections
+    optax.multi_transform holds two Adams: group 0 the network {model[,
+    gate]} (eps 1e-15, the cosine schedule), group 1 the pose corrections
     (EXT_LR, EXT_EPS, no schedule)."""
 
-    def __init__(self, cfg: MNGPConfig, tcfg: TrainConfig, params: dict,
-                 gate_params: dict, model_state: dict, data: dict,
+    def __init__(self, cfg: NGPConfig, tcfg: TrainConfig, params: dict,
+                 gate_params: dict | None, model_state: dict, data: dict,
                  gen: torch.Generator, ext_params: dict | None = None):
         self.cfg, self.tcfg, self.gen = cfg, tcfg, gen
         self.rcfg = render_config(cfg, tcfg)
-        self.buckets = budget_buckets(cfg.n_experts)
-        self.bundle = {"model": params, "gate": gate_params}
+        self.moe = gate_params is not None
+        self.buckets = budget_buckets(cfg.n_experts if self.moe else 1)
+        self.bundle = {"model": params}
+        if self.moe:
+            self.bundle["gate"] = gate_params
         groups = [{"params": tree_leaves(self.bundle)}]
         if ext_params is not None:
             self.bundle["ext"] = ext_params
@@ -263,7 +280,8 @@ class Trainer:
         )
 
     def update_grid(self, warmup: bool) -> None:
-        self.model_state = mngp_update_density_grids(
+        update = mngp_update_density_grids if self.moe else update_density_grid
+        self.model_state = update(
             self.bundle["model"], self.model_state, self.cfg, self.gen,
             DENSITY_THRESHOLD, warmup,
         )
@@ -313,15 +331,10 @@ def refuse_unported(h) -> None:
     has not ported, with its ROADMAP.md item."""
     refused = [
         msg for cond, msg in (
-            (not getattr(h, "moe_training", False),
-             "non-MoE training (train.py's single NGP field; queue 1, "
-             "item 5)"),
             (h.layout == "dense", "--layout dense (queue 1, item 5)"),
             (h.num_devices > 1, "--num_devices > 1 (queue 1, item 5: "
                                 "parallel/)"),
             (h.multihost, "--multihost (queue 1, item 5: parallel/)"),
-            (h.ckpt_backend == "orbax",
-             "--ckpt_backend orbax (queue 1, item 3)"),
         ) if cond
     ]
     if refused:
@@ -331,27 +344,32 @@ def refuse_unported(h) -> None:
 
 class NeRFSystem:
     """The training system of the entry points (twin of radnerf_tpu's
-    NeRFSystem, train_ml.py's MoE path) on `device`: it reads the scene
+    NeRFSystem) on `device`: the MoE with --moe_training (train_ml.py),
+    else the single NGP field (train.py without it). It reads the scene
     from disk, keeps the ray store on the device, and drives a `Trainer`
     (which owns the step) through epochs with validation, logging and
     checkpoints. Logs, checkpoints and validation images go under
     logs/, ckpts/ and results/<dataset_name>/<scene_name>/<exp_name> in
-    the working directory, as in the reference."""
+    the working directory, as in the reference. With --ckpt_backend
+    orbax the checkpoints are written by a background thread
+    (utils.ckpt.AsyncCkptWriter)."""
 
     def __init__(self, hparams, device=DEFAULT_DEVICE):
         refuse_unported(hparams)
         self.h = h = hparams
         self.device = torch.device(device)
+        self.moe = bool(getattr(h, "moe_training", False))
         run = f"{h.dataset_name}/{h.scene_name}/{h.exp_name}"
         self.logger = init_global_logger(f"logs/{run}/log.txt")
         self.writer = MetricWriter(f"logs/{run}")
         self.ckpt_dir = f"ckpts/{run}"
         self.val_dir = f"results/{run}"
-        self.cfg = MNGPConfig(
-            scale=h.scale, log2_T=h.hash_table_size,
-            n_experts=h.model_zoo_size, compute_dtype=h.compute_dtype,
-            hash_impl=h.hash_impl,
-        )
+        kw = dict(scale=h.scale, log2_T=h.hash_table_size,
+                  compute_dtype=h.compute_dtype, hash_impl=h.hash_impl)
+        self.cfg = (MNGPConfig(n_experts=h.model_zoo_size, **kw) if self.moe
+                    else NGPConfig(**kw))
+        self.ckpt_writer = (AsyncCkptWriter()
+                             if h.ckpt_backend == "orbax" else None)
         self.trainer = None
 
     # ------------------------------------------------------------------
@@ -390,8 +408,13 @@ class NeRFSystem:
         Trainer with its Adam and its draws' generator."""
         h, dev = self.h, self.device
         gen = torch.Generator().manual_seed(h.seed)
-        params = init_mngp(gen, self.cfg, device=dev)
-        gate = init_ray_gate(gen, self.cfg.n_experts, device=dev)
+        if self.moe:
+            params = init_mngp(gen, self.cfg, device=dev)
+            gate = init_ray_gate(gen, self.cfg.n_experts, device=dev)
+            state = init_mngp_state(self.cfg, device=dev)
+        else:
+            params, gate = init_ngp(gen, self.cfg, device=dev), None
+            state = init_ngp_state(self.cfg, device=dev)
         if h.weight_path:
             params = load_weights_into(params, h.weight_path)
             self._reconcile_hash_impl(load_ckpt(h.weight_path))
@@ -408,8 +431,7 @@ class NeRFSystem:
             ext = {k: torch.zeros(len(ds.poses), 3, device=dev)
                    for k in ("dR", "dT")}
         self.trainer = Trainer(
-            self.cfg, self.tcfg, params, gate,
-            init_mngp_state(self.cfg, device=dev), data,
+            self.cfg, self.tcfg, params, gate, state, data,
             torch.Generator(device=dev).manual_seed(h.seed + 1), ext)
 
     def lr_schedule(self, step: int) -> float:
@@ -425,8 +447,8 @@ class NeRFSystem:
         return self.trainer.bundle["model"]
 
     @property
-    def gate_params(self) -> dict:
-        return self.trainer.bundle["gate"]
+    def gate_params(self) -> dict | None:
+        return self.trainer.bundle.get("gate")
 
     @property
     def ext_params(self) -> dict | None:
@@ -441,8 +463,9 @@ class NeRFSystem:
         """Train from the first incomplete epoch to --num_epochs: a
         validation every min(num_epochs, 10) epochs and at the last, a
         checkpoint per epoch, a log line and metrics every 100 steps,
-        then the slim export. `on_step(step, loss, aux)` is called after
-        every step."""
+        then the slim export (which waits for a checkpoint still being
+        written). `on_step(step, loss, aux)` is called after every
+        step."""
         h = self.h
         spe = self.tcfg.steps_per_epoch
         check_every = min(h.num_epochs, 10)         # train_ml.py:296
@@ -506,7 +529,8 @@ class NeRFSystem:
                     directions: torch.Tensor) -> dict:
         """Test-time render of camera-frame `directions` (P, 3) from
         `pose` (3, 4), in chunks of --val_chunk rays (render_rays_chunked):
-        rgb (P, 3), gated depth (P,), opacity (P,), total_samples."""
+        rgb (P, 3), depth (P,) (the MoE's gated consensus, or the single
+        field's own), opacity (P,), total_samples."""
         return render_rays_chunked(
             self.params, self.model_state, self.cfg, self.gate_params,
             directions, pose, self.trainer.rcfg, chunk=self.h.val_chunk,
@@ -596,7 +620,7 @@ class NeRFSystem:
         ckpt = load_ckpt(ckpt_path)
         tr = self.trainer
         _copy_into(tr.bundle["model"], ckpt["params"], "params")
-        if "gate_params" in ckpt:
+        if "gate" in tr.bundle and "gate_params" in ckpt:
             _copy_into(tr.bundle["gate"], ckpt["gate_params"], "gate_params")
         if "ext" in tr.bundle and "ext_params" in ckpt:
             _copy_into(tr.bundle["ext"], ckpt["ext_params"], "ext_params")
@@ -643,29 +667,42 @@ class NeRFSystem:
 
     def save_checkpoint(self, epoch: int) -> None:
         """epoch=<epoch>.ckpt in the JAX package's layout, recording the
-        RESOLVED hash impl (a table decodes only under its family); with
-        --optimize_ext also ext_params."""
+        RESOLVED hash impl (a table decodes only under its family); the
+        MoE's gate_params, and with --optimize_ext ext_params. With
+        --ckpt_backend orbax the file is written in the background (the
+        values are copied to the host first)."""
         hp = dict(vars(self.h))
         hp["resolved_hash_impl"] = resolve_impl(self.cfg.hash_impl)
         params, gate = params_to_jax(self.params, self.gate_params)
         payload = {
             "params": params,
-            "gate_params": gate,
             "opt_state": adam_state_to_jax(self.trainer.optimizer,
                                            self.trainer.bundle),
             "model_state": state_to_jax(self.model_state),
             "step": self.global_step,
             "hparams": hp,
         }
+        if gate is not None:
+            payload["gate_params"] = gate
         if self.ext_params is not None:
             payload["ext_params"] = state_to_jax(self.ext_params)
-        save_ckpt(os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt"),
-                  payload)
+        path = os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt")
+        if self.ckpt_writer is not None:
+            self.ckpt_writer.save(path, payload)
+        else:
+            save_ckpt(path, payload)
+
+    def wait_for_checkpoint(self) -> None:
+        """Return once no checkpoint is being written (re-raising the
+        background write's error, if it failed)."""
+        if self.ckpt_writer is not None:
+            self.ckpt_writer.wait()
 
     def export_slim(self, epoch: int) -> None:
         """The slim file of the last checkpoint, as the reference writes
         it: slim_ckpt keeps "pose_params", which no checkpoint holds (the
         poses are saved as "ext_params"), so no slim file carries poses."""
+        self.wait_for_checkpoint()
         path = os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt")
         if os.path.exists(path):
             save_ckpt(os.path.join(self.ckpt_dir, f"epoch={epoch}_slim.ckpt"),
@@ -704,7 +741,12 @@ class NeRFSystem:
         self.logger.info(f"saved rgb.mp4/depth.mp4 to {self.val_dir}")
 
     def close(self) -> None:
-        self.writer.close()
+        """Wait for a checkpoint still being written, then close the
+        metric writer."""
+        try:
+            self.wait_for_checkpoint()
+        finally:
+            self.writer.close()
 
 
 @torch.no_grad()

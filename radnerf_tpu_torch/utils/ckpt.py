@@ -13,8 +13,15 @@ MaskedNode leaves), which `load_ckpt` reads as stand-ins of the same
 names and fields, without importing optax.
 
 `load_ckpt` unpickles only numpy arrays, dtypes and those stand-ins, and
-refuses any other class a file names. The reference's orbax directories
-(--ckpt_backend orbax) are not read (ROADMAP.md queue 1).
+refuses any other class a file names.
+
+--ckpt_backend orbax: the reference writes an orbax directory from
+orbax's background thread, so that training never waits on
+serialization. The port has no orbax (nor has the card's machine) and
+writes the same single-file pickle at the same path from a thread of its
+own (`AsyncCkptWriter`): the values are copied to the host first, one
+write is in flight at a time. An orbax directory of the JAX package is
+not read: `load_ckpt` raises, naming orbax.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import collections
 import os
 import pickle
+import threading
 from typing import Any
 
 import numpy as np
@@ -85,13 +93,62 @@ def save_ckpt(path: str, payload: dict) -> None:
             os.remove(tmp)
 
 
+def _host_copy(tree: Any) -> Any:
+    """`tree` with every tensor and numpy array copied to new host arrays
+    (a CPU tensor's .numpy() shares its memory, which the next step
+    changes), tuples as lists, as save_ckpt pickles them."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_copy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True).numpy()
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+class AsyncCkptWriter:
+    """Checkpoints written by a background thread (--ckpt_backend orbax):
+    `save` copies the payload to the host, waits for the write before it
+    (one write in flight) and returns while a thread writes the file with
+    save_ckpt (temporary file, fsync, rename). `wait` returns once no
+    write is in flight, re-raising the error of a write that failed."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def _write(self, path: str, payload: dict) -> None:
+        try:
+            save_ckpt(path, payload)
+        except Exception as e:         # re-raised by the next wait()
+            self._error = e
+
+    def save(self, path: str, payload: dict) -> None:
+        host = _host_copy(payload)
+        self.wait()
+        self._thread = threading.Thread(
+            target=self._write, args=(path, host), name="ckpt-writer",
+            daemon=False)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
 def load_ckpt(path: str) -> dict:
     """A checkpoint of either package (see the module docstring)."""
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path} is an orbax checkpoint directory (--ckpt_backend "
-            "orbax); the port reads single-file pickle checkpoints only "
-            "(ROADMAP.md queue 1)")
+            f"{path} is an orbax checkpoint directory, which needs orbax "
+            "to read; the port reads single-file pickle checkpoints only "
+            "(its --ckpt_backend orbax writes one in the background)")
     with open(path, "rb") as f:
         return _Unpickler(f).load()
 

@@ -1,16 +1,20 @@
 """The port's example scripts run on the CPU at a small size and print every
-report label that their JAX twins in examples/ print, so that the two
-outputs read side by side. A CPU run's first line is `cpu`; a run that
+report label that their JAX twins in examples/ print (smoke_e2e's
+progress lines, convergence's JSON rows and SUMMARY line), so that the
+two outputs read side by side. A CPU run's first line is `cpu`; a run that
 asks for CUDA where there is none fails (no fallback)."""
+
+import functools
 
 import pytest
 import torch
 
 from radnerf_tpu_torch.examples import (
     bench_brick3, bench_brick_fetch, bench_brick_grad, bench_gather_shapes,
-    bench_hashgrid, bench_scatter, bench_vmem_gather, profile_step,
-    proto_pallas_gather, trace_step,
+    bench_hashgrid, bench_scatter, bench_vmem_gather, convergence,
+    profile_step, proto_pallas_gather, smoke_e2e, trace_step,
 )
+from radnerf_tpu_torch.train import trainer as tt
 
 torch.set_num_threads(2)
 
@@ -65,7 +69,44 @@ SCRIPTS = {
     "bench_brick_fetch": (
         lambda: bench_brick_fetch.run(2048, 256, device="cpu"),
         ["scalar8 :", "brick2  :"]),
+    "smoke_e2e": (
+        lambda: smoke_e2e.run(8, 128, device="cpu"),
+        ["step 0: loss=", "step 7: loss=", "steps in ", "PSNR "]),
+    "smoke_e2e_moe": (
+        lambda: smoke_e2e.run(4, 128, moe=True, device="cpu"),
+        ["step 0: loss=", "step 3: loss=", "steps in ", "PSNR "]),
+    "convergence_sphere": (
+        lambda: convergence.main(["sphere", "--steps", "3", "--batch", "64",
+                                  "--eval_every", "2", "--eval_rays", "256",
+                                  "--device", "cpu"]),
+        ['{"step": 0, "psnr":', '{"step": 2, "psnr":',
+         'SUMMARY {"exp": "sphere"']),
+    "convergence_hard": (
+        lambda: convergence.main(["hard", "--render", "per_expert",
+                                  "--steps", "2", "--batch", "64",
+                                  "--eval_every", "1", "--eval_rays", "128",
+                                  "--levels", "4", "--log2_T", "10",
+                                  "--device", "cpu"]),
+        ['{"step": 1, "psnr":', 'SUMMARY {"exp": "hard"',
+         '"render": "per_expert"']),
+    # the system's density grid (128^3, no flag) cut to 32^3 and 4 levels,
+    # as tests/test_torch_system.py does
+    "convergence_scene": (
+        lambda: _small_system(convergence.main)(
+            ["scene", "--steps", "3", "--batch", "256", "--eval_every", "2",
+             "--device", "cpu"]),
+        ['{"step": 0, "val_psnr":', '{"step": 2, "val_psnr":',
+         'SUMMARY {"exp": "scene"']),
 }
+
+
+def _small_system(fn):
+    def call(*a):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tt, "NGPConfig", functools.partial(
+                tt.NGPConfig, grid_size=32, n_levels=4))
+            return fn(*a)
+    return call
 
 
 @pytest.mark.parametrize("script", list(SCRIPTS))

@@ -197,10 +197,13 @@ def test_encode_dispatch_modes_and_refusals():
                                             cfg.hash, fw_mode="dedup")
     with pytest.raises(ValueError):
         _encode(params, state, cfg, x, impl="nope")
+    # unshared_MNGP: expert `ind` encodes with its own table of the stack
     unshared = MNGPConfig(scale=0.5, grid_size=32, n_levels=4, log2_T=12,
                           compute_dtype="bfloat16", shared_encoder=False)
-    with pytest.raises(NotImplementedError):
-        _encode(params, state, unshared, x)
+    other = thg.init_hashgrid_table(gen, cfg.hash, device="cpu")
+    stacked = {"hash_table": torch.stack([other, params["hash_table"]])}
+    assert torch.equal(_encode(stacked, state, unshared, x, ind=1), runs)
+    assert not torch.equal(_encode(stacked, state, unshared, x, ind=0), runs)
 
 
 @pytest.mark.parametrize("scale,log2_T", [(0.5, 19), (0.5, 12), (1.0, 15),

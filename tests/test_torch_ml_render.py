@@ -2,7 +2,7 @@
 test-time render (`ml_render_test`, shared encoder, union sampling, flat
 layout, brick3, bf16) at a small size whose shapes reach both Pallas
 kernels on the JAX side; the parameter converter; the chunked camera
-render; the refusals of paths not ported yet."""
+render; the refusal of the dense layout, not ported yet."""
 
 import jax
 import jax.numpy as jnp
@@ -185,11 +185,14 @@ def test_render_rays_chunked_pads_and_gates_depth(models):
 
 
 def test_unported_paths_raise(models):
+    """The dense test layout is refused, with or without union sampling
+    (the per-expert flat renders are held against JAX in
+    test_torch_expert_renders)."""
     _, (tcfg, tp, tg, ts) = models
     o, d = map(torch.from_numpy, _rays(8))
-    for rcfg in (RenderConfig(union_sampling=False),
-                 RenderConfig(test_layout="dense")):
-        with pytest.raises(NotImplementedError):
+    for union in (True, False):
+        rcfg = RenderConfig(test_layout="dense", union_sampling=union)
+        with pytest.raises(NotImplementedError, match="dense"):
             ml_render_test(tp, ts, tcfg, tg, o, d, d, rcfg)
 
 

@@ -279,13 +279,18 @@ def test_five_adam_steps_track_the_jax_loss(patched):
 
 
 def test_unported_training_paths_raise():
-    tcfg = MNGPConfig(**CFG_KW)
+    """The dense layout, with or without union sampling, and with either
+    encoder, is refused before anything is computed (the per-expert and
+    unshared flat renders are held against JAX in
+    test_torch_expert_renders)."""
     o = torch.zeros(8, 3)
     d = torch.nn.functional.normalize(torch.ones(8, 3), dim=1)
-    for rcfg in (RenderConfig(layout="dense"),
-                 RenderConfig(layout="flat", union_sampling=False)):
-        with pytest.raises(NotImplementedError):
-            ml_render_train({}, {}, tcfg, {}, o, d, d, rcfg)
+    for shared in (True, False):
+        tcfg = MNGPConfig(**CFG_KW, shared_encoder=shared)
+        for union in (True, False):
+            rcfg = RenderConfig(layout="dense", union_sampling=union)
+            with pytest.raises(NotImplementedError, match="dense"):
+                ml_render_train({}, {}, tcfg, {}, o, d, d, rcfg)
 
 
 def test_tree_paths_name_the_leaves_in_jax_order():

@@ -6,12 +6,14 @@ metrics and a profiler trace; validation's PSNR and SSIM are the JAX
 metrics of the same renders; --resume auto skips a torn checkpoint; the
 learning rate is the JAX closure's; --no-adaptive_budget, --random_bg,
 --host_sampling (no effect, as in the reference), the oracle, the train.py
-twin, the flags the port refuses, and a JAX checkpoint resumed by the
-system.
+twin (the MoE with --moe_training, the single NGP field without), the
+single field trained, validated, checkpointed and rendered by the oracle,
+--ckpt_backend orbax training, checkpointing and resuming, the flags the
+port refuses, and a JAX checkpoint resumed by the system.
 
-The system builds MNGPConfig from the flags; the density grid (128^3 in
-the reference, no flag) is cut to 32^3 and the levels to 4 here, so that
-the CPU run stays short.
+The system builds MNGPConfig (NGPConfig for the single field) from the
+flags; the density grid (128^3 in the reference, no flag) is cut to 32^3
+and the levels to 4 here, so that the CPU run stays short.
 """
 
 import functools
@@ -72,6 +74,8 @@ def run(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tt, "MNGPConfig", functools.partial(tt.MNGPConfig,
                                                        **SMALL))
+        mp.setattr(tt, "NGPConfig", functools.partial(tt.NGPConfig,
+                                                      **SMALL))
         # as on a machine without tensorboard: metrics.jsonl only
         mp.setitem(sys.modules, "torch.utils.tensorboard", None)
         os.chdir(work)
@@ -304,14 +308,71 @@ def test_a_jax_checkpoint_resumes_in_the_system(run, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--layout", "dense"], ["--num_devices", "2"], ["--multihost"],
-    ["--ckpt_backend", "orbax"], "single field"])
+    ["--layout", "dense"], ["--num_devices", "2"], ["--multihost"]])
 def test_unported_flags_are_refused(tmp_path, monkeypatch, extra):
     monkeypatch.chdir(tmp_path)
-    moe = extra != "single field"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        system_for("nowhere", "x", *(extra if moe else []), moe=moe)
+        system_for("nowhere", "x", *extra)
     assert os.listdir(tmp_path) == []
+
+
+def test_ckpt_backend_orbax_trains_checkpoints_and_resumes(run):
+    """--ckpt_backend orbax: the epochs' files written in the background
+    are the JAX layout's pickles (the slim export waited for the last);
+    --resume auto continues from them with the Adam state."""
+    os.chdir(run.work)
+    flags = ("--ckpt_backend", "orbax", "--no_save_test")
+    system = train_ml.main(args(run.root, "orbax", "--num_epochs", "1",
+                                *flags), device="cpu")
+    assert system.ckpt_writer is not None and system.global_step == 6
+    system.close()
+    names = sorted(os.listdir(_path(run, "ckpts", "orbax", "")))
+    assert names == ["epoch=0.ckpt", "epoch=0_slim.ckpt"]
+    first = load_ckpt(_path(run, "ckpts", "orbax", "epoch=0.ckpt"))
+    assert int(first["step"]) == 6 and int(first["opt_state"]["count"]) == 6
+    for a, b in zip(tree_leaves(system.params),
+                    jax.tree_util.tree_leaves(first["params"])):
+        np.testing.assert_array_equal(a.detach().numpy(), b)
+    resumed = train_ml.main(args(run.root, "orbax", "--num_epochs", "2",
+                                 "--resume", "auto", *flags), device="cpu")
+    resumed.close()
+    assert resumed.global_step == 12
+    last = load_ckpt(_path(run, "ckpts", "orbax", "epoch=1.ckpt"))
+    assert int(last["step"]) == 12 and int(last["opt_state"]["count"]) == 12
+    with open(_path(run, "logs", "orbax", "log.txt")) as f:
+        assert "resumed from" in f.read()
+
+
+def test_single_field_trains_validates_checkpoints_and_renders(run):
+    """train.py's single NGP field (no --moe_training): two epochs with a
+    validation, full and slim checkpoints without gate_params (unstacked
+    grids, the Adam state over {"model"}), and the oracle, also without
+    --moe_training, rendering the last validation again."""
+    from radnerf_tpu_torch.train.__main__ import main as train_main
+
+    os.chdir(run.work)
+    system = train_main(args(run.root, "single"), device="cpu")
+    system.close()
+    assert not system.moe and system.gate_params is None
+    assert system.global_step == 12
+    full = load_ckpt(_path(run, "ckpts", "single", "epoch=1.ckpt"))
+    assert "gate_params" not in full
+    assert set(full["opt_state"]["mu"]) == {"model"}
+    assert full["model_state"]["density_grid"].shape == (1, 32**3)
+    assert set(full["params"]["geo"]) == {"w", "b"}
+    assert full["params"]["geo"]["w"][0].shape == (8, 64)   # unstacked
+    slim = load_ckpt(_path(run, "ckpts", "single", "epoch=1_slim.ckpt"))
+    assert set(slim) == {"params", "step", "hparams"}
+    pngs = sorted(os.listdir(os.path.join(run.work, "results", *RUN,
+                                          "single")))
+    assert pngs == ["000epoch1.png", "000epoch1_d.png", "001epoch1.png",
+                    "001epoch1_d.png"]
+    last = [m["value"] for m in _metrics(run, "single")
+            if m["tag"] == "test/psnr"][-1]
+    got = oracle.main(args(run.root, "single_oracle", "--ckpt_path",
+                           _path(run, "ckpts", "single", "epoch=1.ckpt")),
+                      device="cpu")
+    assert abs(got["psnr"] - last) <= 1e-9
 
 
 def test_host_sampling_is_accepted_and_changes_nothing(run):
@@ -333,20 +394,22 @@ def test_host_sampling_is_accepted_and_changes_nothing(run):
 
 def test_train_entry_runs_the_moe_system_and_refuses_the_single_field(
         run, monkeypatch):
-    """python -m radnerf_tpu_torch.train (the twin of train.py): with
-    --moe_training the NeRFSystem of train_ml; without, the single NGP
-    field is refused naming its ROADMAP.md item."""
+    """python -m radnerf_tpu_torch.train (the twin of train.py) runs both
+    systems: with --moe_training the NeRFSystem of train_ml (the gate in
+    its checkpoint); without it the single NGP field, which it used to
+    refuse (the test keeps its name)."""
     from radnerf_tpu_torch.train.__main__ import main as train_main
 
     os.chdir(run.work)
-    system = train_main(args(run.root, "train_py", "--moe_training",
-                             "--num_epochs", "1", "--no_save_test"),
-                        device="cpu")
-    assert system.global_step == 6
-    assert os.path.exists(_path(run, "ckpts", "train_py", "epoch=0.ckpt"))
-    system.close()
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        train_main(args(run.root, "train_py_single"), device="cpu")
+    for exp, extra, moe in (("train_py", ["--moe_training"], True),
+                            ("train_py_single", [], False)):
+        system = train_main(args(run.root, exp, *extra, "--num_epochs", "1",
+                                 "--no_save_test"), device="cpu")
+        assert system.global_step == 6 and system.moe == moe
+        ck = load_ckpt(_path(run, "ckpts", exp, "epoch=0.ckpt"))
+        assert ("gate_params" in ck) == moe
+        assert ck["params"]["hash_table"].shape == (4, 2**11, 2)
+        system.close()
 
 
 def test_flags_are_the_jax_flags():
