@@ -2,8 +2,8 @@
 """Drive the PyTorch port's Rad-NeRF MoE render and training, its
 examples' microbenchmark kernels, its train_ml.py entry point on a scene
 on disk, every dataset loader of the launch scripts, train.py's single
-NGP field and the per-expert and unshared MoE renders, on one NVIDIA
-GPU.
+NGP field, the per-expert and unshared MoE renders, and train_other.py's
+Switch-, Block- and Mega-NeRF baselines, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -150,9 +150,31 @@ CPU fallback):
      examples/smoke_e2e.py at its defaults (its own check: PSNR up by
      more than 5 dB; tcnn_table_grad once per step). Printed: the median
      train rays/s, each part's seconds and the nvidia-smi line;
- 12. a JSON line with every kernel's check, launches (per phase), times
+ 12. train_other.py's baselines on phase 9's scene with phase 9's cuts,
+     at full width (zoo 2, T=2^19, L=16, G=128, bf16, auto = brick3,
+     batch 8192, scale 0.5): (a) switch with switch_tat.sh's options
+     (the point gate, cv 1e-4) through radnerf_tpu_torch.train_other.main:
+     the untrained system validated, ENTRY_EPOCHS epochs of ENTRY_STEPS
+     steps (test PSNR up by more than 3 dB, checkpoints without a gate
+     recording brick3), one more epoch with --resume auto from step
+     2 x ENTRY_STEPS; launch counts reset before and read after
+     (brick3_table_grad exactly 4 per step; kernels 1 and 2 launched);
+     then card vs CPU: a CHUNK-ray test chunk of test view 0 from the
+     resumed system (CPU_TOL) and one step-0 microbatch of 2048 rays of
+     a fresh model on phase 5's ray store (TRAIN_CPU_LOSS_RTOL,
+     TRAIN_CPU_GRAD_RTOL), its gate noise drawn on the CPU for both
+     sides; the CPU side routes the point gate as the card did
+     (RouteTap): the flipped top-1 slots are counted, each must be a
+     near tie and they at most 0.1% of the slots; one step profiled;
+     (b) block with block_TAT.sh's options (--downsample cut to 0.1) the
+     same way, its anchors printed, validated untrained, after training
+     and after the resumed epoch; (c) mega for DS_SHORT_STEPS steps and
+     one validation (finite losses, brick3_table_grad 4 per step).
+     Printed: each part's seconds, the median train rays/s and the
+     nvidia-smi line;
+ 13. a JSON line with every kernel's check, launches (per phase), times
      and bound;
- 13. the last line: {"ok": true, "device": {...}}.
+ 14. the last line: {"ok": true, "device": {...}}.
 
 Phase 4 also renders 256 rays with hash_impl 'dedup' on the card and on
 the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
@@ -173,8 +195,9 @@ import zlib
 import numpy as np
 import torch
 
+import radnerf_tpu_torch.models.gates as gates_mod
 import radnerf_tpu_torch.render.ml_render as ml_render_mod
-from radnerf_tpu_torch import kernels, oracle, train_ml
+from radnerf_tpu_torch import kernels, oracle, train_ml, train_other
 from radnerf_tpu_torch.data import native, png
 from radnerf_tpu_torch.data.color_utils import resize_linear
 from radnerf_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, write_jpeg
@@ -184,6 +207,7 @@ from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
 from radnerf_tpu_torch.examples import profile_step
 from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
 from radnerf_tpu_torch.examples import smoke_e2e
+from radnerf_tpu_torch.models.block import BlockNGPConfig, init_block_ngp
 from radnerf_tpu_torch.models.gates import init_ray_gate
 from radnerf_tpu_torch.models.mlp import layer_tap
 from radnerf_tpu_torch.models.mngp import MNGPConfig, init_mngp, init_mngp_state
@@ -191,6 +215,7 @@ from radnerf_tpu_torch.models.ngp import (
     NGPConfig, all_cell_coords, cell_world_positions, init_ngp,
     init_ngp_state, scene_center_half,
 )
+from radnerf_tpu_torch.models.switch import SwitchNGPConfig, init_switch_ngp
 from radnerf_tpu_torch.ops import hashgrid_brick, hashgrid_slab
 from radnerf_tpu_torch.ops.compositing import composite_train_flat
 from radnerf_tpu_torch.ops.fma import fma32
@@ -226,7 +251,13 @@ from radnerf_tpu_torch.parallel.step import (
 from radnerf_tpu_torch.render.ml_render import get_rays, render_rays_chunked
 from radnerf_tpu_torch.opt import get_opts
 from radnerf_tpu_torch.render.render import NEAR_DISTANCE, RenderConfig
+from radnerf_tpu_torch.render.block_render import block_render_test
+from radnerf_tpu_torch.render.switch_render import switch_render_test
 from radnerf_tpu_torch.train import trainer as tt
+from radnerf_tpu_torch.train.other_trainer import (
+    OtherNeRFSystem, kmeans_cameras, other_density_fn, other_loss_fn,
+    spatial_gating,
+)
 from radnerf_tpu_torch.utils.ckpt import load_ckpt
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
@@ -342,6 +373,16 @@ SINGLE_ARGS = ("--dataset_type", "nsvf", "--dataset_name", "TanksAndTemple",
 # its own expert's gated gradient only; 64 steps
 EXPERT_STEPS = 64
 SMOKE_STEPS = 300                # examples/smoke_e2e.py's default
+# phase 12, train_other.py's baselines on phase 9's scene with phase 9's
+# cuts: switch_tat.sh's and block_TAT.sh's options (--downsample cut to
+# phase 9's 0.1; --eval_lpips left out, as in phase 10), and --model_type
+# mega for DS_SHORT_STEPS steps
+BASELINE_ARGS = {
+    "switch": ("--model_type", "switch", "--model_zoo_size", "2",
+               "--gate_type", "point", "--cv_loss_w", "1e-4"),
+    "block": ("--model_type", "block", "--model_zoo_size", "2"),
+    "mega": ("--model_type", "mega", "--model_zoo_size", "2"),
+}
 FAMILY_KERNELS = {"brick3": "brick3_table_grad",
                   "dedup": "tcnn_table_grad", "slab": "slab_table_grad",
                   "brick": "brick_table_grad", "pallas": "tcnn_table_grad"}
@@ -1569,6 +1610,91 @@ def probe_diffs(card: StepProbe, cpu: StepProbe) -> dict:
                        if hid]}
 
 
+class RouteTap:
+    """The switch's point gate routed alike on two devices: in `record`
+    the gate's top-k order (models/gates.py::top_k) of each call is kept;
+    in `replay` each call takes the recorded order of the same call (the
+    same slots), so a hard top-1 that flips on a near tie between the
+    card's and the CPU's sums does not send a sample through another
+    expert. Each flipped slot is measured against a tie: the gap between
+    its two noisy logits here must be within 2 bf16 ulps of the larger
+    clean logit, plus 2^-6 of the larger noise term (its noise scale is a
+    softplus of a bf16 logit); `report` gives the slots seen, the flips,
+    their share and the worst gap over that tie bound (<= 1)."""
+
+    def __init__(self):
+        self.orders, self.mode, self.n = [], None, 0
+        self.slots = self.flips = 0
+        self.worst = 0.0
+        self.last = None
+
+    @contextlib.contextmanager
+    def _patched(self, mode: str):
+        self.mode, self.n = mode, 0
+        if mode == "record":
+            self.orders = []
+        saved = gates_mod.point_gate_logits, gates_mod.top_k
+        self._logits_fn, self._top_k_fn = saved
+
+        def logits(*args, **kw):
+            self.last = self._logits_fn(*args, **kw)
+            return self.last
+
+        gates_mod.point_gate_logits, gates_mod.top_k = logits, self._top_k
+        try:
+            yield self
+        finally:
+            gates_mod.point_gate_logits, gates_mod.top_k = saved
+            check(mode == "record" or self.n == len(self.orders),
+                  f"RouteTap: {self.n} gate calls replayed against "
+                  f"{len(self.orders)} recorded")
+
+    def record(self):
+        return self._patched("record")
+
+    def replay(self):
+        return self._patched("replay")
+
+    def _top_k(self, x, k):
+        vals, idx = self._top_k_fn(x, k)
+        if self.mode == "record":
+            self.orders.append(idx.detach().cpu())
+            return vals, idx
+        check(self.n < len(self.orders), "RouteTap: more gate calls than "
+                                         "recorded")
+        ref = self.orders[self.n].to(idx.device)
+        self.n += 1
+        check(ref.shape == idx.shape, f"RouteTap: gate call of {idx.shape} "
+                                      f"replayed against {ref.shape}")
+        flipped = ref[:, 0] != idx[:, 0]
+        self.slots += idx.shape[0]
+        if bool(flipped.any()):
+            clean, noisy, _ = (t.detach().float() for t in self.last)
+            a, b = ref[flipped, :1], idx[flipped, :1]
+            pick = lambda t, i: t[flipped].gather(1, i)[:, 0]
+            gap = (pick(noisy, a) - pick(noisy, b)).abs()
+            big = torch.maximum(pick(clean, a).abs(), pick(clean, b).abs())
+            term = torch.maximum((pick(noisy, a) - pick(clean, a)).abs(),
+                                 (pick(noisy, b) - pick(clean, b)).abs())
+            tol = 2 * bf16_ulp(big) + 2.0**-6 * term
+            self.flips += int(flipped.sum())
+            self.worst = max(self.worst, float((gap / tol).max()))
+        return x.gather(1, ref), ref
+
+    def report(self) -> dict:
+        return {"slots": self.slots, "flips": self.flips,
+                "share": self.flips / max(self.slots, 1),
+                "worst_gap_over_tie": self.worst}
+
+    def check_ties(self, label: str) -> dict:
+        rep = self.report()
+        check(rep["worst_gap_over_tie"] <= 1.0,
+              f"{label}: a routing flip that is not a near tie ({rep})")
+        check(rep["share"] <= 1e-3, f"{label}: routing flips on more than "
+                                    f"0.1% of the slots ({rep})")
+        return rep
+
+
 def cpu_step(trainer, cfg, batch, where, probe: StepProbe | None = None):
     """One step of the batch's rays from the trainer's parameters and
     state on `where` under cfg: (loss, aux, gradient leaves on the
@@ -1581,7 +1707,7 @@ def cpu_step(trainer, cfg, batch, where, probe: StepProbe | None = None):
     state = {k: move(v) for k, v in trainer.model_state.items()}
     data = {k: move(v) for k, v in trainer.data.items()}
     b = {k: move(v) for k, v in batch.items()}
-    vg = microbatched_value_and_grad(lambda p, bt: tt.loss_fn(
+    vg = microbatched_value_and_grad(lambda p, bt: trainer.loss_fn(
         p, state, bt, data, cfg, trainer.rcfg, trainer.tcfg), 1)
     if probe is not None:
         probe.bind(bundle)
@@ -1596,7 +1722,9 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
                  loss_rtol: float = TRAIN_CPU_LOSS_RTOL,
                  grad_rtol: float = TRAIN_CPU_GRAD_RTOL,
                  label: str = "train", pin_forward: bool = False,
-                 rays: int = CPU_RAYS, grad_launches: int = 1) -> dict:
+                 rays: int = CPU_RAYS, grad_launches: int = 1,
+                 batch_extra=None,
+                 route: "RouteTap | None" = None) -> dict:
     """One step of `rays` rays (256 by default) at full width on the card
     and on the CPU (plain versions) from the trainer's parameters and
     state and the same draws (seed 3), under `cfg` (default the
@@ -1609,7 +1737,10 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
     its two bf16 roundings of the CPU's, the gate's output layer at its
     term scale; the card's gate leaves halved must fail that comparison.
     The same on each batch of PIN_SEEDS, further 256-ray batches of the
-    same state. Returns the report of every batch."""
+    same state. `batch_extra(batch, seed)` adds draws to the batch (the
+    switch's gate noise, drawn on the CPU for both sides); with `route`
+    (RouteTap) the CPU step routes the point gate as the card's did.
+    Returns the report of every batch."""
     cfg = cfg or trainer.cfg
     dev = trainer.data["directions"].device
     cpu_dev = torch.device("cpu")
@@ -1621,18 +1752,24 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
         batch = tt.sample_batch(
             torch.Generator(device=dev).manual_seed(seed), trainer.data,
             rays)
+        if batch_extra is not None:
+            batch.update(batch_extra(batch, seed))
         pg, pc = (StepProbe(), StepProbe()) if pin_forward else (None, None)
         before = kernels.launch_counts[kernel]
-        lg, ag, gg = cpu_step(trainer, cfg, batch, dev, pg)
+        with route.record() if route else contextlib.nullcontext():
+            lg, ag, gg = cpu_step(trainer, cfg, batch, dev, pg)
         check(kernels.launch_counts[kernel] == before + grad_launches,
               f"{label}: the card step did not launch {kernel} "
               f"{grad_launches} times")
-        lc, ac, gc = cpu_step(trainer, cfg, batch, cpu_dev, pc)
+        with route.replay() if route else contextlib.nullcontext():
+            lc, ac, gc = cpu_step(trainer, cfg, batch, cpu_dev, pc)
         leaves = leaf_report(paths, gg, gc)
         top = max(leaves, key=lambda r: r["ratio"])
         rec = {"seed": seed, "loss": [lg, lc],
                "samples": [ag["rm_samples"], ac["rm_samples"]],
                "worst": top["ratio"], "worst_leaf": top["leaf"]}
+        if route is not None:
+            rec["route"] = route.report()
         checked = leaves
         if pin_forward and ag["rm_samples"] == ac["rm_samples"]:
             pin = StepProbe(pin=pg)
@@ -1675,7 +1812,8 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
                   + (f", {worst:.3g} with the card's forward"
                      if pin_forward else "")
                   + f" (tolerance loss {loss_rtol} relative, leaves "
-                  f"{grad_rtol})")
+                  f"{grad_rtol})"
+                  + (f"; point gate {rec['route']}" if route else ""))
             for r in leaves:
                 print(f"[{label}]   leaf {r['leaf']}: {r['ratio']:.3g} at "
                       f"{tuple(r['at'])}, card {r['card']:.6g} vs CPU "
@@ -2129,6 +2267,261 @@ def single_phase(cfg: MNGPConfig, store: dict, dev, smi: str) -> tuple:
           f"{experts['per_expert']['phase_seconds']:.1f} s, unshared "
           f"{experts['unshared']['phase_seconds']:.1f} s, smoke_e2e "
           f"{smoke['seconds']:.1f} s); {smi}")
+    return launches, summary
+
+
+# ---------------------------------------------------------------- phase 12
+def baseline_args(root: str, kind: str, exp: str, *extra) -> list:
+    return ["--root_dir", root, "--exp_name", exp, *SINGLE_ARGS,
+            *BASELINE_ARGS[kind], *extra]
+
+
+def baseline_render(kind: str, params, state, cfg, rcfg, anchors,
+                    overlap: float):
+    """The baseline's test-time chunk render (OtherNeRFSystem.render_chunk)
+    on whatever device its tensors lie."""
+    def render(rays_o, rays_d):
+        if kind == "switch":
+            return switch_render_test(params, state, cfg, rays_o, rays_d,
+                                      rcfg)
+        return block_render_test(params, state, cfg, rays_o, rays_d,
+                                 spatial_gating(rays_o, anchors, overlap),
+                                 rcfg)
+    return render
+
+
+def baseline_runs(kind: str, root: str, dev) -> dict:
+    """Phase 12a/b: train_other.main with the launch script's options (see
+    the module docstring): the untrained system validated, ENTRY_EPOCHS
+    epochs, one more resumed with --resume auto; returns the summary, its
+    launch counts and the resumed system."""
+    run = os.path.join("TanksAndTemple", "Sphere")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    untrained = OtherNeRFSystem(get_opts(baseline_args(root, kind,
+                                                       "untrained")),
+                                device=dev)
+    untrained.setup()
+    check(not untrained.moe and untrained.gate_params is None
+          and untrained.cfg.hash_impl == "auto",
+          f"{kind}: the baseline built a gate or took --hash_impl")
+    psnr0 = untrained.validate(epoch=0)["psnr"]
+    if untrained.anchors is not None:
+        print(f"[{kind}] anchors (k-means of the "
+              f"{len(untrained.train_dataset.poses)} training cameras' "
+              f"centres): {untrained.anchors.cpu().numpy().round(4).tolist()}")
+    untrained.close()
+    del untrained
+
+    secs = [[], []]
+    trained = train_other.main(
+        baseline_args(root, kind, kind, "--num_epochs", str(ENTRY_EPOCHS)),
+        device=dev, on_step=step_timer(secs[0]))
+    trained.close()
+    del trained
+    ckpts = os.path.join("ckpts", run, kind)
+    e = ENTRY_EPOCHS - 1
+    for name in (f"epoch={e}.ckpt", f"epoch={e}_slim.ckpt"):
+        check(os.path.exists(os.path.join(ckpts, name)), f"no {name}")
+    first = load_ckpt(os.path.join(ckpts, f"epoch={e}.ckpt"))
+    check("gate_params" not in first
+          and first["hparams"]["resolved_hash_impl"] == "brick3",
+          f"{kind}: the checkpoint holds a gate or another hash family")
+    with open(os.path.join("logs", run, kind, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    psnr1 = [m["value"] for m in metrics if m["tag"] == "test/psnr"][-1]
+    n1 = ENTRY_EPOCHS * ENTRY_STEPS
+    print(f"[{kind}] {n1} steps: test PSNR {psnr0:.3f} -> {psnr1:.3f} dB")
+    check(psnr1 >= psnr0 + 3.0, f"{kind} test psnr {psnr0} -> {psnr1}")
+    check(len(secs[0]) == n1, f"{len(secs[0])} steps")
+
+    resumed = train_other.main(
+        baseline_args(root, kind, kind, "--num_epochs",
+                      str(ENTRY_EPOCHS + 1), "--resume", "auto"),
+        device=dev, on_step=step_timer(secs[1]))
+    resumed.close()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    n2 = (ENTRY_EPOCHS + 1) * ENTRY_STEPS
+    with open(os.path.join("logs", run, kind, "log.txt")) as f:
+        log = f.read()
+    last = load_ckpt(os.path.join(ckpts, f"epoch={ENTRY_EPOCHS}.ckpt"))
+    check(f"epoch={ENTRY_EPOCHS - 1}.ckpt at step {n1}" in log
+          and len(secs[1]) == ENTRY_STEPS and int(last["step"]) == n2,
+          f"{kind}: the resumed run did not continue at step {n1}")
+    with open(os.path.join("logs", run, kind, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    psnr2 = [m["value"] for m in metrics
+             if m["tag"] == "test/psnr" and m["step"] == n2][-1]
+    print(f"[{kind}] resumed at step {n1}, epoch {ENTRY_EPOCHS} validated "
+          f"at {psnr2:.3f} dB")
+    mb = tt.TrainConfig().n_microbatch
+    check(launches["brick3_table_grad"] == mb * n2,
+          f"{kind}: brick3_table_grad launched "
+          f"{launches['brick3_table_grad']} times, expected {mb * n2} ({mb} "
+          f"microbatches x {n2} steps)")
+    for name in ("brick3_encode_fwd", "occ_lookup"):
+        check(launches[name] > mb * n2, f"{kind}: {name} launched "
+                                        f"{launches[name]}")
+    rates = [8192 / s for run_secs in secs for s in run_secs[16:]]
+    return {"launches": launches, "system": resumed, "steps": n2,
+            "psnr_untrained": psnr0, "psnr_trained": psnr1,
+            "psnr_resumed": psnr2, "rays_per_s": float(np.median(rates)),
+            "rays_per_s_min": float(min(rates)),
+            "rays_per_s_max": float(max(rates))}
+
+
+def mega_run(root: str, dev) -> tuple:
+    """Phase 12c: --model_type mega for DS_SHORT_STEPS steps and one
+    validation (finite losses; brick3_table_grad 4 per step)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses = []
+    system = train_other.main(
+        baseline_args(root, "mega", "mega", "--steps_per_epoch",
+                      str(DS_SHORT_STEPS), "--num_epochs", "1"),
+        device=dev, on_step=lambda step, loss, aux: losses.append(
+            float(loss)))
+    system.close()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    with open(os.path.join("logs", "TanksAndTemple", "Sphere", "mega",
+                           "metrics.jsonl")) as f:
+        psnr = [json.loads(line)["value"] for line in f
+                if '"test/psnr"' in line]
+    print(f"[mega] {len(losses)} steps: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}, test PSNR {psnr}; launches {launches}")
+    check(len(losses) == DS_SHORT_STEPS and all(np.isfinite(losses))
+          and len(psnr) == 1 and np.isfinite(psnr[0]),
+          "mega: non-finite losses or no validation")
+    mb = tt.TrainConfig().n_microbatch
+    check(launches["brick3_table_grad"] == mb * DS_SHORT_STEPS,
+          f"mega: brick3_table_grad launched {launches}")
+    return launches, {"steps": DS_SHORT_STEPS, "loss_first": losses[0],
+                      "loss_last": losses[-1], "psnr": psnr[0]}
+
+
+def baseline_trainer(kind: str, store: dict, dev):
+    """A fresh baseline at full width (scale 0.5, T=2^19, bf16, brick3,
+    zoo 2, the script's cv weight) on phase 5's ray store, its grid after
+    the warmup update: the state a first step sees."""
+    config = SwitchNGPConfig if kind == "switch" else BlockNGPConfig
+    cfg = config(scale=0.5, compute_dtype="bfloat16", hash_impl="brick3")
+    gen = torch.Generator().manual_seed(1)
+    anchors = None
+    if kind == "switch":
+        params = init_switch_ngp(gen, cfg, device=dev)
+    else:
+        params = init_block_ngp(gen, cfg, device=dev)
+        anchors = torch.from_numpy(kmeans_cameras(
+            store["poses"][:, :, 3].cpu().numpy().copy(), 2)).to(dev)
+    trainer = tt.Trainer(
+        cfg, tt.TrainConfig(cv_loss_w=1e-4), params, None,
+        init_ngp_state(cfg, device=dev), store,
+        torch.Generator(device=dev).manual_seed(2),
+        loss=other_loss_fn(kind, anchors, 0.25),
+        density_fn=other_density_fn(kind))
+    trainer.update_grid(warmup=True)
+    return trainer
+
+
+def baseline_vs_cpu(kind: str, system, store: dict, dev) -> dict:
+    """Phase 12d: the baseline on the card against the CPU: a CHUNK-ray
+    test chunk of test view 0 from the resumed system (CPU_TOL), and one
+    step-0 microbatch of 2048 rays of a fresh model (TRAIN_CPU_LOSS_RTOL,
+    TRAIN_CPU_GRAD_RTOL), its gate noise drawn on the CPU for both sides;
+    the switch's CPU side routed as the card's (RouteTap: its flips
+    counted, each a near tie, at most 0.1% of the slots); one step
+    profiled."""
+    ds = system.test_dataset
+    w, img_h = ds.img_wh
+    p0 = (img_h // 2) * w - CHUNK // 2
+    dirs = torch.from_numpy(ds.directions[p0:p0 + CHUNK])
+    pose = torch.from_numpy(ds.poses[0])
+    rcfg, overlap = system.trainer.rcfg, system.h.overlap_ratio
+    tap = RouteTap()
+    outs = []
+    for d in (dev, "cpu"):
+        move = (lambda t: to_cpu(t)) if d == "cpu" else (lambda t: t)
+        anchors = None if system.anchors is None else move(system.anchors)
+        with tap.record() if d == dev else tap.replay():
+            outs.append(render_rays_chunked(
+                move(system.params), move(system.model_state), system.cfg,
+                None, dirs.to(d), pose.to(d), rcfg, chunk=CHUNK,
+                render=baseline_render(kind, move(system.params),
+                                       move(system.model_state), system.cfg,
+                                       rcfg, anchors, overlap)))
+    route = tap.check_ties(f"{kind} render") if kind == "switch" else None
+    diffs = {k: float((outs[0][k].cpu() - outs[1][k]).abs().max())
+             for k in CPU_TOL}
+    print(f"[{kind}] card vs CPU plain, a {CHUNK}-ray test chunk of test "
+          f"view 0: max|diff| {diffs} (tolerance {CPU_TOL}); samples "
+          f"{outs[0]['total_samples']} vs {outs[1]['total_samples']}"
+          + (f"; point gate {route}" if route else ""))
+    for k, tol in CPU_TOL.items():
+        check(diffs[k] <= tol, f"{kind} render card vs CPU {k}: {diffs[k]}")
+    check(outs[0]["total_samples"] == outs[1]["total_samples"],
+          f"{kind} render: card and CPU marched different samples")
+
+    trainer = baseline_trainer(kind, store, dev)
+    tcfg = trainer.tcfg
+    rays = tcfg.batch_size // tcfg.n_microbatch
+    extra, tap = None, None
+    if kind == "switch":
+        tap = RouteTap()
+        budget = trainer.rcfg.budget_per_ray
+
+        def extra(batch, seed):
+            g = torch.Generator().manual_seed(seed)
+            return {"gate_noise": torch.randn((rays, budget, 2),
+                                              generator=g).to(dev)}
+    step = train_vs_cpu(trainer, label=kind, rays=rays, batch_extra=extra,
+                        route=tap)
+    if tap is not None:
+        step[0]["route"] = tap.check_ties(f"{kind} step")
+    profile = profile_call(
+        lambda: trainer.train_step(tt.sample_batch(
+            trainer.gen, trainer.data, tcfg.batch_size)),
+        f"one {kind} training step ({tcfg.batch_size} rays, "
+        f"{tcfg.n_microbatch} microbatches, budget "
+        f"{trainer.rcfg.budget_per_ray})")
+    return {"render": diffs, "render_route": route, "step": step,
+            "profile": profile}
+
+
+def baseline_phase(cfg: MNGPConfig, store: dict, dev, smi: str) -> tuple:
+    """Phase 12 (see the module docstring). Returns ({path: launch
+    counts}, summary)."""
+    t_phase = time.perf_counter()
+    launches, summary = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
+        root = write_tanks_scene(tmp, cfg, dev)
+        cwd = os.getcwd()
+        os.chdir(tmp)          # logs/, ckpts/, results/ go under tmp
+        try:
+            for kind in ("switch", "block"):
+                t0 = time.perf_counter()
+                res = baseline_runs(kind, root, dev)
+                launches[kind] = res.pop("launches")
+                system = res.pop("system")
+                res["vs_cpu"] = baseline_vs_cpu(kind, system, store, dev)
+                del system
+                res["seconds"] = time.perf_counter() - t0
+                summary[kind] = res
+                print(f"[{kind}] {res['seconds']:.1f} s; train rays/s "
+                      f"median {res['rays_per_s']:.0f} (steps after the "
+                      f"first 16 of each run); launches {launches[kind]}; "
+                      f"{smi}")
+            t0 = time.perf_counter()
+            launches["mega"], summary["mega"] = mega_run(root, dev)
+            summary["mega"]["seconds"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"[baselines] phase 12 in {summary['seconds']:.1f} s (switch "
+          f"{summary['switch']['seconds']:.1f} s, block "
+          f"{summary['block']['seconds']:.1f} s, mega "
+          f"{summary['mega']['seconds']:.1f} s); {smi}")
     return launches, summary
 
 
@@ -2739,7 +3132,12 @@ def main() -> None:
     phase_launches.update(launches_11)
     print(json.dumps({"single_and_experts": summary_11}))
 
-    # 12. kernels line: per kernel and contract, the launches of the path
+    # 12. train_other.py's baselines: switch, block and mega
+    launches_12, summary_12 = baseline_phase(cfg, store, dev, smi)
+    phase_launches.update(launches_12)
+    print(json.dumps({"baselines": summary_12}))
+
+    # 13. kernels line: per kernel and contract, the launches of the path
     # that runs it (its training phase, or the examples'; every phase's
     # counts, the entry point's among them, under launches_by_path); ms, plain, library and bound at a
     # training step 0 microbatch, the shape of most launches (the
@@ -2788,7 +3186,7 @@ def main() -> None:
         check(n_launch > 0, f"kernel {name} not launched on {path}")
         if path == "train_brick3":       # rows 1-3: the entry points' too
             for entry in ("entry", "datasets", "single", "per_expert",
-                          "unshared"):
+                          "unshared", "switch", "block", "mega"):
                 check(phase_launches[entry][name] > 0,
                       f"kernel {name} not launched on {entry}")
         runs = train_checks.get(key, []) + [

@@ -15,9 +15,15 @@ every hash-grid family that `hash_impl` selects (`ops.hashgrid.
 encode_dispatch`: the tcnn hash, slab, brick, brick3): the Rad-NeRF MoE
 render and training step (`render.ml_render`, `train.trainer.Trainer`)
 with union sampling, per-expert marches or a hash table per expert; the
-single NGP field (`render.render`); the entry points of train_ml.py,
-train.py and oracle.py with every dataset loader (`train_ml`, `train`,
-`oracle`); and the measurement scripts of examples/ (`examples`).
+single NGP field (`render.render`); train_other.py's Switch-, Block- and
+Mega-NeRF baselines (`models.switch`, `models.block`,
+`render.switch_render`, `render.block_render`,
+`train.other_trainer`); the entry points of train_ml.py, train.py,
+train_other.py and oracle.py with every dataset loader (`train_ml`,
+`train`, `train_other`, `oracle`: `python -m radnerf_tpu_torch.
+train_other --model_type switch ...` on the card, `train_other.main(
+argv, device="cpu")` on the CPU); and the measurement scripts of
+examples/ (`examples`).
 """
 
 DEFAULT_DEVICE = "cuda"

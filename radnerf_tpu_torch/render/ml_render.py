@@ -409,12 +409,15 @@ def render_rays_chunked(
     chunk: int = 4096,
     gate_type: str = "ray",
     mean_dir: torch.Tensor | None = None,
+    render=None,
 ) -> dict:
     """Render one camera, as the trainer's validation loop does: chunks of
     `chunk` rays (the last one padded by repeating its final direction),
     rays from `pose` (3, 4). With a gate, the MoE render (ml_render_test)
     and the gated consensus depth sum_k depth_k * gate_k; with
-    gate_params None, the single field (render_test) and its own depth.
+    gate_params None, the single field (render_test) and its own depth;
+    `render(rays_o, rays_d) -> {rgb, depth, opacity, total_samples,
+    iterations}` overrides both (the baselines' renders).
 
     Returns rgb (P, 3), depth (P,), opacity (P,) for the P directions,
     plus total_samples and iterations summed over chunks."""
@@ -433,7 +436,10 @@ def render_rays_chunked(
         poses_c = pose.expand(chunk, 3, 4)
         rays_o, rays_d = get_rays(dirs, poses_c)
         rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
-        if gate_params is None:
+        if render is not None:
+            out = render(rays_o, rays_d)
+            d = out["depth"]
+        elif gate_params is None:
             out = render_test(params, state, cfg, rays_o, rays_d, rcfg)
             d = out["depth"]
         else:

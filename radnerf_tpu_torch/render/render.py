@@ -160,6 +160,7 @@ def render_test(
     rays_d: torch.Tensor,
     rcfg: RenderConfig,
     forward_fn=None,
+    forward_takes_ray_id: bool = False,
 ) -> dict:
     """Test-time render of (N, 3) rays: per loop iteration the alive rays'
     kept samples compact into one (N * test_budget_per_ray,) buffer; a
@@ -168,9 +169,11 @@ def render_test(
     has consumed max_samples samples.
 
     `forward_fn(x, d)` overrides the field (its third item, if any, is
-    dropped); by default the field's, on a brick3 table packed once per
-    call. Returns rgb (N, 3), depth (N,), opacity (N,), total_samples
-    and iterations (the loop's count)."""
+    dropped); with `forward_takes_ray_id` it is called as forward_fn(x,
+    d, ray_id=...), each sample's ray, as in render_train; by default
+    the field's, on a brick3 table packed once per call. Returns rgb (N,
+    3), depth (N,), opacity (N,), total_samples and iterations (the
+    loop's count)."""
     if rcfg.test_layout != "flat":
         raise NotImplementedError(DENSE_LAYOUT)
     if forward_fn is None:
@@ -211,7 +214,11 @@ def render_test(
         rid = m["ray_id"].long()
         d = rays_d[rid]
         xyz = fma32(m["ts"][:, None], d, rays_o[rid])
-        sigmas, rgbs, _ = _fwd_out(forward_fn(xyz, d))
+        if forward_takes_ray_id:
+            sigmas, rgbs, _ = _fwd_out(forward_fn(xyz, d,
+                                                  ray_id=m["ray_id"]))
+        else:
+            sigmas, rgbs, _ = _fwd_out(forward_fn(xyz, d))
         acc = composite_test_flat(
             sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"], m["offsets"],
             m["cap"], m["valid"], acc, rcfg.T_threshold,

@@ -245,6 +245,11 @@ class Trainer:
     grids, the ray store and the generator of every draw (on the ray
     store's device).
 
+    `loss(bundle, model_state, batch, data, cfg, rcfg, tcfg, gen) ->
+    (loss, aux)` is the step's loss (default loss_fn); `density_fn(params,
+    model_state, cfg) -> (x -> sigma)` the grid update's densities of one
+    shared grid (default: the field's own, or each expert's with a gate).
+
     One torch.optim.Adam holds two parameter groups, as the reference's
     optax.multi_transform holds two Adams: group 0 the network {model[,
     gate]} (eps 1e-15, the cosine schedule), group 1 the pose corrections
@@ -252,10 +257,18 @@ class Trainer:
 
     def __init__(self, cfg: NGPConfig, tcfg: TrainConfig, params: dict,
                  gate_params: dict | None, model_state: dict, data: dict,
-                 gen: torch.Generator, ext_params: dict | None = None):
+                 gen: torch.Generator, ext_params: dict | None = None,
+                 loss=None, density_fn=None):
         self.cfg, self.tcfg, self.gen = cfg, tcfg, gen
+        self.loss_fn = loss or loss_fn
         self.rcfg = render_config(cfg, tcfg)
         self.moe = gate_params is not None
+        if density_fn is not None:
+            self._update_grid = lambda p, s, *a: update_density_grid(
+                p, s, *a, density_fn(p, s, cfg))
+        else:
+            self._update_grid = (mngp_update_density_grids if self.moe
+                                 else update_density_grid)
         self.buckets = budget_buckets(cfg.n_experts if self.moe else 1)
         self.bundle = {"model": params}
         if self.moe:
@@ -274,14 +287,14 @@ class Trainer:
         self.global_step = 0
         self.last_budget_util = None
         self._step = make_train_step(
-            lambda b, s, batch, d: loss_fn(b, s, batch, d, self.cfg,
-                                           self.rcfg, self.tcfg, self.gen),
+            lambda b, s, batch, d: self.loss_fn(b, s, batch, d, self.cfg,
+                                                self.rcfg, self.tcfg,
+                                                self.gen),
             self.optimizer, tcfg.n_microbatch,
         )
 
     def update_grid(self, warmup: bool) -> None:
-        update = mngp_update_density_grids if self.moe else update_density_grid
-        self.model_state = update(
+        self.model_state = self._update_grid(
             self.bundle["model"], self.model_state, self.cfg, self.gen,
             DENSITY_THRESHOLD, warmup,
         )
@@ -403,18 +416,27 @@ class NeRFSystem:
                 f"{self.tcfg.n_microbatch} accumulation slices")
         self.configure_model()
 
+    def init_model(self, gen: torch.Generator) -> tuple:
+        """(params, gate params or None, model state) on the device, the
+        weights drawn from `gen`."""
+        dev = self.device
+        if self.moe:
+            return (init_mngp(gen, self.cfg, device=dev),
+                    init_ray_gate(gen, self.cfg.n_experts, device=dev),
+                    init_mngp_state(self.cfg, device=dev))
+        return (init_ngp(gen, self.cfg, device=dev), None,
+                init_ngp_state(self.cfg, device=dev))
+
+    def trainer_hooks(self) -> dict:
+        """The Trainer's `loss` and `density_fn` (none: its defaults)."""
+        return {}
+
     def configure_model(self) -> None:
         """Weights from the seed (or --weight_path), empty grids, and the
         Trainer with its Adam and its draws' generator."""
         h, dev = self.h, self.device
-        gen = torch.Generator().manual_seed(h.seed)
-        if self.moe:
-            params = init_mngp(gen, self.cfg, device=dev)
-            gate = init_ray_gate(gen, self.cfg.n_experts, device=dev)
-            state = init_mngp_state(self.cfg, device=dev)
-        else:
-            params, gate = init_ngp(gen, self.cfg, device=dev), None
-            state = init_ngp_state(self.cfg, device=dev)
+        params, gate, state = self.init_model(
+            torch.Generator().manual_seed(h.seed))
         if h.weight_path:
             params = load_weights_into(params, h.weight_path)
             self._reconcile_hash_impl(load_ckpt(h.weight_path))
@@ -432,7 +454,8 @@ class NeRFSystem:
                    for k in ("dR", "dT")}
         self.trainer = Trainer(
             self.cfg, self.tcfg, params, gate, state, data,
-            torch.Generator(device=dev).manual_seed(h.seed + 1), ext)
+            torch.Generator(device=dev).manual_seed(h.seed + 1), ext,
+            **self.trainer_hooks())
 
     def lr_schedule(self, step: int) -> float:
         """The cosine schedule (train_ml.py:148-151) at `step`."""

@@ -18,13 +18,15 @@ from .opt import get_opts
 from .train.trainer import NeRFSystem
 
 
-def run(hparams, device=DEFAULT_DEVICE, on_step=None) -> NeRFSystem:
-    """Set up, resume (--ckpt_path, or --resume auto), then validate
-    (--val_only) or train. `on_step(step, loss, aux)` is called after
-    every training step. Returns the system."""
+def run(hparams, device=DEFAULT_DEVICE, on_step=None,
+        system_cls=NeRFSystem) -> NeRFSystem:
+    """Set up a `system_cls` (NeRFSystem or a subclass), resume
+    (--ckpt_path, or --resume auto), then validate (--val_only) or train.
+    `on_step(step, loss, aux)` is called after every training step.
+    Returns the system."""
     if hparams.val_only and not hparams.ckpt_path:
         raise ValueError("You need to provide a @ckpt_path for validation!")
-    system = NeRFSystem(hparams, device=device)
+    system = system_cls(hparams, device=device)
     system.setup()
     if hparams.ckpt_path:
         system.resume(hparams.ckpt_path)
