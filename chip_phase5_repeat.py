@@ -9,10 +9,14 @@ are used (`.` for this one). Until SECONDS have passed, each iteration
 trains a fresh brick3 trainer TRAIN_STEPS steps and one more step (the
 state phase 5 holds against the CPU), then runs that check:
 
-- by default as phase 5 runs it (`train_vs_cpu(trainer)`: batch seed 3,
-  every leaf at TRAIN_CPU_GRAD_RTOL of its largest entry, the CPU step
-  running its own forward), printing the worst leaf and the gate's
-  output bias `gate/encoder/b/4`;
+- by default as phase 5 runs it (`train_vs_cpu(trainer, pin_gate=True)`:
+  batch seed 3, the gate's output layer `gate/encoder/{w,b}/4` at its
+  term scale on the card's forward, every other leaf at
+  TRAIN_CPU_GRAD_RTOL of its largest entry with the CPU step running its
+  own forward), printing both the check's worst leaf (`worst_checked`,
+  `over`) and the worst over every leaf unpinned, the form phase 5 had
+  before (`worst`, `unpinned_over`), and the gate's output bias
+  `gate/encoder/b/4` unpinned;
 - with --batches on seed 3 and each batch of PIN_SEEDS, unpinned and
   pinned to the card's forward (`pin_forward=True`, phase 6's form),
   printing the batches over the tolerance each way.
@@ -63,7 +67,10 @@ while time.perf_counter() + per < t_end:
     tr.model_state = cs.init_mngp_state(cfg, device=dev)
     cs.fit(tr, cs.TRAIN_STEPS, "train")
     tr.train_step(cs.tt.sample_batch(tr.gen, tr.data, tr.tcfg.batch_size))
-    rep = cs.train_vs_cpu(tr, pin_forward=batches)
+    if batches:
+        rep = cs.train_vs_cpu(tr, pin_forward=True)
+    else:
+        rep = cs.train_vs_cpu(tr, pin_gate=True)
     per = time.perf_counter() - t0
     rec = {"tree": root, "iter": it, "worst": rep[0]["worst"],
            "worst_leaf": rep[0]["worst_leaf"]}
@@ -80,7 +87,11 @@ while time.perf_counter() + per < t_end:
         b4 = next(r for r in first["leaves"]
                   if r["leaf"] == "gate/encoder/b/4")
         rec.update(b4_ratio=b4["ratio"], b4_card=b4["card"],
-                   b4_cpu=b4["cpu"])
+                   b4_cpu=b4["cpu"], unpinned_over=rec["worst"] > tol,
+                   worst_checked=rep[0].get("worst_checked"),
+                   over=(rep[0].get("worst_checked") or 0) > tol,
+                   gate_out=rep[0].get("gate_out"),
+                   planted=rep[0].get("planted_gate_half"))
     rec.update(failed=sorted(set(failed)), seconds=round(per, 1))
     print("PHASE5 " + json.dumps(rec), flush=True)
     it += 1

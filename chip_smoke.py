@@ -2,8 +2,9 @@
 """Drive the PyTorch port's Rad-NeRF MoE render and training, its
 examples' microbenchmark kernels, its train_ml.py entry point on a scene
 on disk, every dataset loader of the launch scripts, train.py's single
-NGP field, the per-expert and unshared MoE renders, and train_other.py's
-Switch-, Block- and Mega-NeRF baselines, on one NVIDIA GPU.
+NGP field, the per-expert and unshared MoE renders, train_other.py's
+Switch-, Block- and Mega-NeRF baselines, and the dense sample layout, on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -50,7 +51,8 @@ CPU fallback):
      encode alone timed (forward and backward) at a trained microbatch;
      then one 256-ray step on the card and on the CPU (plain versions)
      from the same parameters and draws, loss and every gradient leaf
-     compared (each leaf printed with its worst entry);
+     compared (each leaf printed with its worst entry), the ray gate's
+     output layer at its term scale on the card's forward;
   6. the 'dedup' family (the tcnn hash, whose backward is the
      tcnn_table_grad kernel) trained the same way from the same seeds for
      DEDUP_STEPS steps: PSNR must rise, the launch counts are exact
@@ -172,9 +174,29 @@ CPU fallback):
      one validation (finite losses, brick3_table_grad 4 per step).
      Printed: each part's seconds, the median train rays/s and the
      nvidia-smi line;
- 13. a JSON line with every kernel's check, launches (per phase), times
+ 13. the dense layout (--layout dense, samples_per_ray 192) at full
+     width: (a) kernels 1-3 against their plain versions at a dense
+     step-0 microbatch of a fresh MoE trainer (kernel 2 on each expert's
+     own 2048 x 1024 candidates and grid, kernels 1 and 3 on the 2 x 2048
+     x 192 = 786,432 slots, pad slots included), DENSE_FIT_STEPS dense
+     steps of it, one step profiled,
+     with the peak device memory, and one 256-ray dense step card vs CPU
+     (phase 5's tolerances, the gate's output layer at its term scale);
+     (b) train_ml.main with rad_TAT.sh's ZOO=2 options and --layout dense
+     on phase 9's scene, the untrained system validated, DENSE_EPOCHS
+     epochs of DENSE_STEPS steps (test PSNR up by more than 3 dB,
+     brick3_table_grad exactly 4 per step; launch counts reset before and
+     read after: `launches_by_path.dense`), its median train rays/s and
+     peak memory; (c) phase 4's field (expert 0 alone) on the dense test
+     layout: render_test and render_test_compacted over the 400x400 image
+     (rays/s) and one CHUNK-ray chunk of each card vs CPU (CPU_TOL); (d)
+     DS_SHORT_STEPS steps each of switch and block through
+     train_other.main --layout dense with one validation (finite losses,
+     `launches_by_path.dense_baselines`). Printed: the phase's seconds
+     and the nvidia-smi line;
+ 14. a JSON line with every kernel's check, launches (per phase), times
      and bound;
- 14. the last line: {"ok": true, "device": {...}}.
+ 15. the last line: {"ok": true, "device": {...}}.
 
 Phase 4 also renders 256 rays with hash_impl 'dedup' on the card and on
 the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
@@ -209,8 +231,11 @@ from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
 from radnerf_tpu_torch.examples import smoke_e2e
 from radnerf_tpu_torch.models.block import BlockNGPConfig, init_block_ngp
 from radnerf_tpu_torch.models.gates import init_ray_gate
-from radnerf_tpu_torch.models.mlp import layer_tap
-from radnerf_tpu_torch.models.mngp import MNGPConfig, init_mngp, init_mngp_state
+from radnerf_tpu_torch.models.mlp import layer_tap, slice_stacked
+from radnerf_tpu_torch.models.mngp import (
+    MNGPConfig, expert_forward_fn, init_mngp, init_mngp_state,
+    pack_for_encode,
+)
 from radnerf_tpu_torch.models.ngp import (
     NGPConfig, all_cell_coords, cell_world_positions, init_ngp,
     init_ngp_state, scene_center_half,
@@ -239,8 +264,8 @@ from radnerf_tpu_torch.ops.hashgrid_window import (
 from radnerf_tpu_torch.ops.intersection import scene_near_far
 from radnerf_tpu_torch.ops.marching import (
     _lattice_candidates, _occ_flat_index, calc_dt, march_rays_test_flat,
-    march_rays_union_flat, occupancy_lookup, occupancy_lookup_bricks,
-    sample_lattice,
+    march_rays_train, march_rays_union_flat, occupancy_lookup,
+    occupancy_lookup_bricks, sample_lattice,
 )
 from radnerf_tpu_torch.ops.stream_table_grad import (
     stream_table_grad, stream_table_grad_plain, stream_terms,
@@ -250,7 +275,9 @@ from radnerf_tpu_torch.parallel.step import (
 )
 from radnerf_tpu_torch.render.ml_render import get_rays, render_rays_chunked
 from radnerf_tpu_torch.opt import get_opts
-from radnerf_tpu_torch.render.render import NEAR_DISTANCE, RenderConfig
+from radnerf_tpu_torch.render.render import (
+    NEAR_DISTANCE, RenderConfig, render_test, render_test_compacted,
+)
 from radnerf_tpu_torch.render.block_render import block_render_test
 from radnerf_tpu_torch.render.switch_render import switch_render_test
 from radnerf_tpu_torch.train import trainer as tt
@@ -383,6 +410,13 @@ BASELINE_ARGS = {
     "block": ("--model_type", "block", "--model_zoo_size", "2"),
     "mega": ("--model_type", "mega", "--model_zoo_size", "2"),
 }
+# phase 13, the dense layout: rad_TAT.sh ZOO=2's options with --layout
+# dense (samples_per_ray 192: every ray's 192 slots encoded, pad slots
+# included), the MoE entry point DENSE_EPOCHS epochs of DENSE_STEPS steps
+# on phase 9's scene, and DS_SHORT_STEPS steps each of switch and block
+DENSE_EPOCHS, DENSE_STEPS = 2, 64
+DENSE_FIT_STEPS = 32             # the trainer's steps before its CPU step
+DENSE_ARGS = ("--layout", "dense", "--steps_per_epoch", str(DENSE_STEPS))
 FAMILY_KERNELS = {"brick3": "brick3_table_grad",
                   "dedup": "tcnn_table_grad", "slab": "slab_table_grad",
                   "brick": "brick_table_grad", "pallas": "tcnn_table_grad"}
@@ -1214,14 +1248,10 @@ def examples_phase(dev) -> tuple:
     return recs, launches, {k: 1e3 * v for k, v in prof.items()}
 
 
-def microbatch(trainer) -> dict:
-    """One 2048-ray microbatch (draws from seed 7) of the trainer's
-    current parameters, grids and budget: the union march's lattice
-    candidates (xyz, dt) and union grid, its marched samples xn in
-    [0, 1]^3, and a random output gradient g on the valid slots, zero
-    elsewhere (as the path gives)."""
+def microbatch_rays(trainer) -> tuple:
+    """One 2048-ray microbatch's draws from seed 7 (the generator, the
+    batch) and its rays' origins, directions, near and far."""
     dev = trainer.data["directions"].device
-    hcfg = trainer.cfg.hash
     gen = torch.Generator(device=dev).manual_seed(7)
     mb = trainer.tcfg.batch_size // trainer.tcfg.n_microbatch
     batch = tt.sample_batch(gen, trainer.data, mb)
@@ -1229,9 +1259,20 @@ def microbatch(trainer) -> dict:
     rays_o, rays_d = get_rays(trainer.data["directions"][batch["pix_idxs"]],
                               poses)
     rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
-    state = trainer.model_state
-    center, half = scene_center_half(state)
+    center, half = scene_center_half(trainer.model_state)
     t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
+    return gen, batch, rays_o, rays_d, t1, t2
+
+
+def microbatch(trainer) -> dict:
+    """One 2048-ray microbatch (draws from seed 7) of the trainer's
+    current parameters, grids and budget: the union march's lattice
+    candidates (xyz, dt) and union grid, its marched samples xn in
+    [0, 1]^3, and a random output gradient g on the valid slots, zero
+    elsewhere (as the path gives)."""
+    hcfg = trainer.cfg.hash
+    gen, batch, rays_o, rays_d, t1, t2 = microbatch_rays(trainer)
+    dev, state = rays_o.device, trainer.model_state
     mcfg = trainer.rcfg.march(trainer.cfg)
     _, dt, xyz, _ = _lattice_candidates(rays_o, rays_d, t1, t2, mcfg,
                                         batch["noise"])
@@ -1335,10 +1376,10 @@ def ray_store(cfg: MNGPConfig, dev) -> dict:
     return store
 
 
-def new_trainer(cfg: MNGPConfig, store: dict, dev):
-    """A trainer at TrainConfig's defaults from seeds 1 (weights) and 2
-    (draws), with empty grids."""
-    tcfg = tt.TrainConfig()
+def new_trainer(cfg: MNGPConfig, store: dict, dev, layout: str = "flat"):
+    """A trainer at TrainConfig's defaults (on `layout`) from seeds 1
+    (weights) and 2 (draws), with empty grids."""
+    tcfg = tt.TrainConfig(layout=layout)
     gen = torch.Generator().manual_seed(1)
     trainer = tt.Trainer(cfg, tcfg, init_mngp(gen, cfg, device=dev),
                          init_ray_gate(gen, cfg.n_experts, device=dev),
@@ -1446,7 +1487,9 @@ def train_phase(cfg: MNGPConfig, store: dict, dev) -> tuple:
         f"microbatches)")
     summary["forward_ms"] = forwards
     summary["encode_ms"] = encode_times(trainer, "train")
-    train_vs_cpu(trainer)
+    # the trained gate's output layer cancels (TRAIN_CPU_GRAD_RTOL): held
+    # at its term scale on the card's forward, every other leaf unpinned
+    summary["vs_cpu"] = train_vs_cpu(trainer, pin_gate=True)
     return checks, launches, summary
 
 
@@ -1722,8 +1765,8 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
                  loss_rtol: float = TRAIN_CPU_LOSS_RTOL,
                  grad_rtol: float = TRAIN_CPU_GRAD_RTOL,
                  label: str = "train", pin_forward: bool = False,
-                 rays: int = CPU_RAYS, grad_launches: int = 1,
-                 batch_extra=None,
+                 pin_gate: bool = False, rays: int = CPU_RAYS,
+                 grad_launches: int = 1, batch_extra=None,
                  route: "RouteTap | None" = None) -> dict:
     """One step of `rays` rays (256 by default) at full width on the card
     and on the CPU (plain versions) from the trainer's parameters and
@@ -1737,7 +1780,11 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
     its two bf16 roundings of the CPU's, the gate's output layer at its
     term scale; the card's gate leaves halved must fail that comparison.
     The same on each batch of PIN_SEEDS, further 256-ray batches of the
-    same state. `batch_extra(batch, seed)` adds draws to the batch (the
+    same state. With `pin_gate` (phase 5's form, seed 3 only) only the
+    gate's output layer is held that way; every other leaf against the
+    CPU step's own forward, as without either; the planted fault and the
+    pinned forward's checks as with `pin_forward`.
+    `batch_extra(batch, seed)` adds draws to the batch (the
     switch's gate noise, drawn on the CPU for both sides); with `route`
     (RouteTap) the CPU step routes the point gate as the card's did.
     Returns the report of every batch."""
@@ -1754,7 +1801,8 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
             rays)
         if batch_extra is not None:
             batch.update(batch_extra(batch, seed))
-        pg, pc = (StepProbe(), StepProbe()) if pin_forward else (None, None)
+        pinning = pin_forward or pin_gate
+        pg, pc = (StepProbe(), StepProbe()) if pinning else (None, None)
         before = kernels.launch_counts[kernel]
         with route.record() if route else contextlib.nullcontext():
             lg, ag, gg = cpu_step(trainer, cfg, batch, dev, pg)
@@ -1771,7 +1819,7 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
         if route is not None:
             rec["route"] = route.report()
         checked = leaves
-        if pin_forward and ag["rm_samples"] == ac["rm_samples"]:
+        if pinning and ag["rm_samples"] == ac["rm_samples"]:
             pin = StepProbe(pin=pg)
             _, _, gp = cpu_step(trainer, cfg, batch, cpu_dev, pin)
             # the gate's output layer at its term scale (see
@@ -1782,6 +1830,9 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
                          (out["x"].float().abs().T @ t).max()),
                      f"gate/encoder/b/{out['layer']}": float(t.sum(0).max())}
             checked = leaf_report(paths, gg, gp, scale)
+            if pin_gate:     # the pinned form for the gate's output only
+                checked = [p if p["leaf"] in scale else u
+                           for p, u in zip(checked, leaves)]
             top = max(checked, key=lambda r: r["ratio"])
             own = {r["leaf"]: r["ratio"] for r in leaf_report(paths, gg, gp)}
             # planted faults: the card's gate leaves halved, all of them
@@ -1802,6 +1853,7 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
                            float(gp[paths.index(k)].abs().max()), 1e-30),
                            alone[k]] for k in scale})
         worst = max(r["ratio"] for r in checked)
+        rec["worst_checked"] = worst
         report.append(rec)
         if seed == 3:
             print(f"[{label}] card vs CPU plain, one {rays}-ray step "
@@ -1811,6 +1863,9 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
                   f"max|ref| {rec['worst']:.3g} over {len(gg)} leaves"
                   + (f", {worst:.3g} with the card's forward"
                      if pin_forward else "")
+                  + (f", {worst:.3g} with the gate's output layer at its "
+                     f"term scale on the card's forward" if pin_gate
+                     else "")
                   + f" (tolerance loss {loss_rtol} relative, leaves "
                   f"{grad_rtol})"
                   + (f"; point gate {rec['route']}" if route else ""))
@@ -1818,14 +1873,15 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
                 print(f"[{label}]   leaf {r['leaf']}: {r['ratio']:.3g} at "
                       f"{tuple(r['at'])}, card {r['card']:.6g} vs CPU "
                       f"{r['cpu']:.6g}")
-        if pin_forward:
+        if pinning:
             print(f"[{label}] batch seed {seed}: " + json.dumps(rec))
         check(ag["rm_samples"] == ac["rm_samples"],
               f"{label}: card and CPU marched different samples")
         check(abs(lg - lc) <= loss_rtol * abs(lc),
               f"{label}: card vs CPU loss")
-        if pin_forward:
-            check(rec["feat_equal"], f"{label}: card and CPU encodes differ")
+        if pinning:
+            check(rec.get("feat_equal", False),
+                  f"{label}: card and CPU encodes differ")
             check(rec["rounding_gap"] <= 1.0, f"{label}: an MLP output "
                   f"beyond its two bf16 roundings ({rec['rounding_gap']})")
             check(rec["planted_gate_half"] > grad_rtol, f"{label}: the "
@@ -2952,6 +3008,265 @@ def datasets_phase(dev, smi: str) -> tuple:
     return launches, summary
 
 
+# ---------------------------------------------------------------- phase 13
+def dense_microbatch(trainer) -> dict:
+    """One 2048-ray microbatch (draws from seed 7) of a dense-layout MoE
+    trainer's parameters and grids: each expert's lattice candidates
+    (xyz, dt; its jitter mod(noise + k/K, 1)) and grid, and every slot of
+    the experts' (K, N, S) dense rows as xn in [0, 1]^3 (a pad slot's
+    point is its ray's origin, clamped into the box), with a random
+    output gradient on the valid slots and zero on the pads (as the path
+    gives: a pad slot's weight is 0)."""
+    cfg, hcfg = trainer.cfg, trainer.cfg.hash
+    gen, batch, rays_o, rays_d, t1, t2 = microbatch_rays(trainer)
+    dev, state = rays_o.device, trainer.model_state
+    mcfg = trainer.rcfg.march(cfg)
+    K = cfg.n_experts
+    shift = torch.arange(K, dtype=torch.float32, device=dev)[:, None] / K
+    noises = torch.remainder(batch["noise"][None, :] + shift, 1.0)
+    cands, ts, valid = [], [], []
+    for k in range(K):
+        _, dt, xyz, _ = _lattice_candidates(rays_o, rays_d, t1, t2, mcfg,
+                                            noises[k])
+        cands.append((xyz, dt, state["occ"][k]))
+        m = march_rays_train(rays_o, rays_d, t1, t2, state["occ"][k], mcfg,
+                             noises[k])
+        ts.append(m["ts"])
+        valid.append(m["valid"])
+    ts, valid = torch.stack(ts), torch.stack(valid).reshape(-1)
+    x = fma32(ts[..., None], rays_d[None, :, None, :],
+              rays_o[None, :, None, :]).reshape(-1, 3)
+    xn = ((x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
+          ).clamp(0.0, 1.0).contiguous()
+    g = torch.randn((xn.shape[0], 2 * hcfg.n_levels), generator=gen,
+                    device=dev)
+    return {"cands": cands, "mcfg": mcfg, "xn": xn,
+            "g": torch.where(valid[:, None], g, 0.0).contiguous(),
+            "n_valid": int(valid.sum())}
+
+
+def dense_checks(trainer, at: str) -> dict:
+    """Kernels 1-3 against their plain versions at one dense microbatch's
+    shapes: kernel 2 on each expert's own candidates and grid, kernels 1
+    (both table forms: the training call reads the f32 table) and 3 on
+    the K x N x S slots. Returns {kernel: [check records]}."""
+    b = dense_microbatch(trainer)
+    hcfg = trainer.cfg.hash
+    table = trainer.bundle["model"]["hash_table"].detach()
+    recs = {
+        "occ_lookup": [occ_check(xyz, dt, occ, b["mcfg"],
+                                 f"{at}, expert {k}")
+                       for k, (xyz, dt, occ) in enumerate(b["cands"])],
+        "brick3_encode_fwd": [encode_check(
+            table, pack_brick3_table(table), b["xn"], hcfg, at, b["n_valid"],
+            plain_reps=10)],
+        "brick3_table_grad": [table_grad_check(b["xn"], b["g"], hcfg, at,
+                                               b["n_valid"])],
+    }
+    for name, rs in recs.items():
+        for rec in rs:
+            print_check(name, rec)
+    return recs
+
+
+def dense_entry(root: str, dev) -> dict:
+    """train_ml.main with rad_TAT.sh's ZOO=2 options and --layout dense on
+    phase 9's scene: the untrained system validated, DENSE_EPOCHS epochs
+    of DENSE_STEPS steps (test PSNR up by more than 3 dB); the launch
+    counts reset before and read after; the peak device memory of the
+    run."""
+    run = os.path.join("TanksAndTemple", "Sphere")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    h = get_opts(entry_args(root, "dense_untrained", *DENSE_ARGS))
+    h.moe_training = True
+    untrained = tt.NeRFSystem(h, device=dev)
+    untrained.setup()
+    psnr0 = untrained.validate(epoch=0)["psnr"]
+    untrained.close()
+    del untrained
+    secs = []
+    torch.cuda.reset_peak_memory_stats()
+    system = train_ml.main(entry_args(root, "dense", *DENSE_ARGS,
+                                      "--num_epochs", str(DENSE_EPOCHS)),
+                           device=dev, on_step=step_timer(secs))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.launch_counts)
+    check(system.trainer.rcfg.layout == "dense", "the entry point did not "
+          "train on the dense layout")
+    system.close()
+    del system
+    with open(os.path.join("logs", run, "dense", "metrics.jsonl")) as f:
+        psnr1 = [json.loads(line)["value"] for line in f
+                 if '"test/psnr"' in line][-1]
+    n = DENSE_EPOCHS * DENSE_STEPS
+    mb = tt.TrainConfig(batch_size=h.batch_size).n_microbatch
+    check(len(secs) == n, f"{len(secs)} dense steps")
+    check(psnr1 > psnr0 + 3.0, f"dense test psnr {psnr0} -> {psnr1}")
+    check(launches["brick3_table_grad"] == mb * n,
+          f"dense brick3_table_grad launched "
+          f"{launches['brick3_table_grad']} times, expected {mb * n}")
+    for name in ("brick3_encode_fwd", "occ_lookup"):
+        check(launches[name] > mb * n, f"{name} launched {launches[name]}")
+    rates = [h.batch_size / t for t in secs[16:]]
+    print(f"[dense] train_ml.main --layout dense: {n} steps, test PSNR "
+          f"{psnr0:.3f} -> {psnr1:.3f} dB; train rays/s median "
+          f"{np.median(rates):.0f} (min {min(rates):.0f}, max "
+          f"{max(rates):.0f}, steps after the first 16); peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    return {"launches": launches, "steps": n, "psnr_untrained": psnr0,
+            "psnr_trained": psnr1, "rays_per_s": float(np.median(rates)),
+            "rays_per_s_min": float(min(rates)),
+            "rays_per_s_max": float(max(rates)),
+            "peak_memory_gib": peak / 2**30}
+
+
+def dense_renders(scene: dict) -> dict:
+    """Phase 4's field (expert 0 as a single field, on its own grid) on
+    the dense test layout: render_test and render_test_compacted over the
+    400x400 image (rays/s, once each after a warm-up chunk), and one
+    CHUNK-ray chunk of each on the card and on the CPU (CPU_TOL, the same
+    samples)."""
+    cfg, rcfg, params, state, directions, pose = (
+        scene[k] for k in ("cfg", "rcfg", "params", "state", "directions",
+                           "pose"))
+    rcfg_d = dataclasses.replace(rcfg, test_layout="dense")
+    n_pix = directions.shape[0]
+
+    def renders(p, st):
+        fwd = expert_forward_fn(
+            p["hash_table"], slice_stacked(p["geo"], 0),
+            slice_stacked(p["rgb"], 0), st, cfg,
+            packed=pack_for_encode(p, cfg))
+        st0 = {**st, "occ": st["occ"][0].contiguous()}
+        return {
+            "render_test": lambda ro, rd: render_test(
+                None, st0, cfg, ro, rd, rcfg_d, forward_fn=fwd),
+            "render_test_compacted": lambda ro, rd: render_test_compacted(
+                None, st0, cfg, ro, rd, rcfg_d, forward_fn=fwd)}
+
+    card = renders(params, state)
+    cpu = renders(to_cpu(params), to_cpu(state))
+    c0 = (n_pix // 2 // CHUNK) * CHUNK
+    out = {}
+    for name, render in card.items():
+        render_rays_chunked(params, state, cfg, None, directions[:CHUNK],
+                            pose, rcfg_d, chunk=CHUNK, render=render)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_rays_chunked(params, state, cfg, None, directions,
+                                  pose, rcfg_d, chunk=CHUNK, render=render)
+        torch.cuda.synchronize()
+        rate = n_pix / (time.perf_counter() - t0)
+        check(bool(torch.isfinite(img["rgb"]).all())
+              and float((img["opacity"] > 0.01).float().mean()) > 0,
+              f"dense {name}: empty or non-finite image")
+        dirs = directions[c0:c0 + CHUNK]
+        gpu = render_rays_chunked(params, state, cfg, None, dirs, pose,
+                                  rcfg_d, chunk=CHUNK, render=render)
+        ref = render_rays_chunked(to_cpu(params), to_cpu(state), cfg, None,
+                                  dirs.cpu(), pose.cpu(), rcfg_d,
+                                  chunk=CHUNK, render=cpu[name])
+        diffs = {k: float((gpu[k].cpu() - ref[k]).abs().max())
+                 for k in CPU_TOL}
+        print(f"[dense] {name} on the dense test layout: {SIDE}x{SIDE} "
+              f"image {rate:.0f} rays/s ({img['iterations']} loop "
+              f"iterations, {img['total_samples']} samples); card vs CPU "
+              f"on {CHUNK} rays max|diff| {diffs} (tolerance {CPU_TOL}); "
+              f"samples {gpu['total_samples']} vs {ref['total_samples']}")
+        for k, tol in CPU_TOL.items():
+            check(diffs[k] <= tol, f"dense {name} card vs CPU {k}: "
+                                   f"{diffs[k]} > {tol}")
+        check(gpu["total_samples"] == ref["total_samples"],
+              f"dense {name}: card and CPU marched different samples")
+        out[name] = {"rays_per_s": rate, "vs_cpu": diffs,
+                     "iterations": img["iterations"]}
+    return out
+
+
+def dense_baselines(root: str, dev) -> tuple:
+    """DS_SHORT_STEPS steps of switch and block through train_other.main
+    with --layout dense and one validation each: finite losses and PSNR.
+    Returns (launch counts of both runs, summary)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = {}
+    for kind in ("switch", "block"):
+        losses = []
+        system = train_other.main(
+            baseline_args(root, kind, f"{kind}_dense", "--layout", "dense",
+                          "--num_epochs", "1", "--steps_per_epoch",
+                          str(DS_SHORT_STEPS)),
+            device=dev, on_step=lambda s, loss, aux: losses.append(
+                float(loss)))
+        check(system.trainer.rcfg.layout == "dense",
+              f"{kind} did not train on the dense layout")
+        system.close()
+        del system
+        with open(os.path.join("logs", "TanksAndTemple", "Sphere",
+                               f"{kind}_dense", "metrics.jsonl")) as f:
+            psnr = [json.loads(line)["value"] for line in f
+                    if '"test/psnr"' in line]
+        check(len(losses) == DS_SHORT_STEPS and all(np.isfinite(losses))
+              and len(psnr) == 1 and np.isfinite(psnr[0]),
+              f"{kind} --layout dense: losses {losses}, test psnr {psnr}")
+        out[kind] = {"loss_first": losses[0], "loss_last": losses[-1],
+                     "psnr": psnr[0]}
+        print(f"[dense] {kind} --layout dense: {DS_SHORT_STEPS} steps, "
+              f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, test PSNR "
+              f"{psnr[0]:.3f} dB")
+    torch.cuda.synchronize()
+    return dict(kernels.launch_counts), out
+
+
+def dense_phase(scene: dict, store: dict, dev, smi: str) -> tuple:
+    """Phase 13 (see the module docstring). Returns ({kernel: check
+    records at the dense shapes}, {path: launch counts}, summary)."""
+    t_phase = time.perf_counter()
+    cfg = scene["cfg"]
+    trainer = new_trainer(cfg, store, dev, layout="dense")
+    trainer.update_grid(warmup=True)        # the state a first step sees
+    checks = dense_checks(trainer, "dense train step 0 (samples_per_ray "
+                                   f"{trainer.rcfg.samples_per_ray})")
+    trainer.model_state = init_mngp_state(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    launches_t, summary_t = fit(trainer, DENSE_FIT_STEPS, "dense")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[dense] peak device memory over {DENSE_FIT_STEPS} dense steps "
+          f"of 8192 rays: "
+          f"{peak / 2**30:.2f} GiB")
+    profile = profile_call(
+        lambda: trainer.train_step(tt.sample_batch(
+            trainer.gen, trainer.data, trainer.tcfg.batch_size)),
+        f"one dense training step ({trainer.tcfg.batch_size} rays, "
+        f"{trainer.tcfg.n_microbatch} microbatches, samples_per_ray "
+        f"{trainer.rcfg.samples_per_ray})")
+    summary = {"trainer": {**summary_t, "peak_memory_gib": peak / 2**30,
+                           "profile": profile},
+               "vs_cpu": train_vs_cpu(trainer, label="dense",
+                                      pin_gate=True)}
+    del trainer
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dense_") as tmp:
+        root = write_tanks_scene(tmp, cfg, dev)
+        cwd = os.getcwd()
+        os.chdir(tmp)          # logs/, ckpts/, results/ go under tmp
+        try:
+            entry = dense_entry(root, dev)
+            launches["dense"] = entry.pop("launches")
+            summary["entry"] = entry
+            summary["renders"] = dense_renders(scene)
+            launches["dense_baselines"], summary["baselines"] = (
+                dense_baselines(root, dev))
+        finally:
+            os.chdir(cwd)
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"[dense] phase 13 in {summary['seconds']:.1f} s; launches "
+          f"{launches}; {smi}")
+    return checks, launches, summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -3137,7 +3452,15 @@ def main() -> None:
     phase_launches.update(launches_12)
     print(json.dumps({"baselines": summary_12}))
 
-    # 13. kernels line: per kernel and contract, the launches of the path
+    # 13. the dense layout: its kernels at the dense shapes, the entry
+    # point, card vs CPU, the dense test renders, the baselines
+    dense_k, launches_13, summary_13 = dense_phase(scene, store, dev, smi)
+    phase_launches.update(launches_13)
+    for key, recs in dense_k.items():
+        train_checks[key] += recs
+    print(json.dumps({"dense": summary_13}))
+
+    # 14. kernels line: per kernel and contract, the launches of the path
     # that runs it (its training phase, or the examples'; every phase's
     # counts, the entry point's among them, under launches_by_path); ms, plain, library and bound at a
     # training step 0 microbatch, the shape of most launches (the
@@ -3186,7 +3509,8 @@ def main() -> None:
         check(n_launch > 0, f"kernel {name} not launched on {path}")
         if path == "train_brick3":       # rows 1-3: the entry points' too
             for entry in ("entry", "datasets", "single", "per_expert",
-                          "unshared", "switch", "block", "mega"):
+                          "unshared", "switch", "block", "mega", "dense",
+                          "dense_baselines"):
                 check(phase_launches[entry][name] > 0,
                       f"kernel {name} not launched on {entry}")
         runs = train_checks.get(key, []) + [

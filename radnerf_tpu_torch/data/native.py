@@ -6,8 +6,9 @@ The library is the repository's `native/libradnerf_io.so` (built from
 load (absent, or its libpng / libjpeg missing), it is built from the same
 source with g++ into the git-ignored `radnerf_tpu_torch/_build/`, never
 into `native/`. Where that fails too, `load_images` returns None and the
-caller decodes in Python (color_utils.read_image); `unavailable_reason`
-then says why (the loader's OSError, or the last line of g++'s error).
+caller decodes in Python (color_utils.read_image), and `morton3d_cpu`
+returns None; `unavailable_reason` then says why (the loader's OSError,
+or the last line of g++'s error).
 """
 
 from __future__ import annotations
@@ -37,6 +38,11 @@ def _bind(path: Path):
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float),
+    ]
+    lib.radnerf_morton3d.restype = None
+    lib.radnerf_morton3d.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32),
     ]
     return lib
 
@@ -127,3 +133,20 @@ def load_images(
     if ok != len(paths):
         return None
     return out.reshape(len(paths), h * w, 3)
+
+
+def morton3d_cpu(coords: np.ndarray) -> np.ndarray | None:
+    """(n, 3) integer coords -> (n,) int32 Morton indices from the native
+    library's radnerf_morton3d (ops/morton.py's morton3d on the host), or
+    None when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    coords = np.ascontiguousarray(coords, np.int32)
+    out = np.empty(len(coords), np.int32)
+    lib.radnerf_morton3d(
+        coords.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        len(coords),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return out

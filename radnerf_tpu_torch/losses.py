@@ -1,11 +1,12 @@
 """Loss layer (twin of radnerf_tpu/losses.py): a dict of per-element
 losses whose means the trainer sums.
 
-The single field's render returns its flat buffers (ws, deltas, ts,
-valid, ray_id, offsets, cap) as they are, and its depth (N,); the MoE
-render returns them per expert, each (K, ...), its depth (N, K) and the
-gate. The distortion loss (off at the default weight 0) is the flat loss,
-or its mean over experts. The gate's terms need a gate of more than one
+The single field's render returns its sample buffers as they are (flat:
+ws, deltas, ts, valid, ray_id, offsets, cap; dense: ws, deltas, ts,
+valid (N, S)), and its depth (N,); the MoE render returns them per
+expert, each (K, ...), its depth (N, K) and the gate. The distortion loss
+(off at the default weight 0) is the flat or the dense loss by the
+layout (a ray_id marks the flat one), or its mean over experts. The gate's terms need a gate of more than one
 expert. `lambda_disp` is accepted, as in the reference's signature; no
 render returns a disparity, so it adds no term (there neither).
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .ops.distortion import distortion_loss_flat
+from .ops.distortion import distortion_loss, distortion_loss_flat
 
 
 def nerf_loss(
@@ -34,20 +35,25 @@ def nerf_loss(
     loss["opacity"] = lambda_opacity * (-o * torch.log(o))
 
     if lambda_distortion > 0 and "ws" in results:
-        if "ray_id" not in results:
-            raise NotImplementedError(
-                "the port's distortion loss takes the flat layout only")
-        args = [results[k] for k in ("ws", "deltas", "ts", "ray_id",
-                                     "offsets", "cap", "valid")]
-        if args[0].dim() == 2:        # (K, B) per-expert stacks
-            per_expert = torch.stack([
-                distortion_loss_flat(*(a[k] for a in args))
-                for k in range(args[0].shape[0])
-            ])
-            loss["distortion"] = lambda_distortion * per_expert.mean(0)
-        else:
-            loss["distortion"] = lambda_distortion * distortion_loss_flat(
-                *args)
+        ws = results["ws"]
+        if "ray_id" in results:       # the flat (static-CSR) layout
+            args = [results[k] for k in ("ws", "deltas", "ts", "ray_id",
+                                         "offsets", "cap", "valid")]
+            if ws.dim() == 2:         # (K, B) per-expert stacks
+                per_expert = torch.stack([
+                    distortion_loss_flat(*(a[k] for a in args))
+                    for k in range(ws.shape[0])
+                ])
+                loss["distortion"] = lambda_distortion * per_expert.mean(0)
+            else:
+                loss["distortion"] = lambda_distortion * (
+                    distortion_loss_flat(*args))
+        else:     # dense: (K, N, S) per expert, or (N, S) one field
+            loss_d = distortion_loss(ws, results["deltas"], results["ts"],
+                                     results["valid"])
+            if ws.dim() == 3:
+                loss_d = loss_d.mean(0)
+            loss["distortion"] = lambda_distortion * loss_d
 
     gate = results.get("gating_code")
     if lambda_cv_importance > 0 and gate is not None and gate.shape[-1] > 1:

@@ -1,12 +1,15 @@
-"""Volume compositing on the flat sample layout (twin of the flat-layout
-half of radnerf_tpu/ops/compositing.py): the training compositor, whose
-backward is autograd through the segmented scans, and the resumable
-test-time compositor.
+"""Volume compositing (twin of radnerf_tpu/ops/compositing.py).
 
-Per-ray sums are segmented scans over the ray-contiguous sample buffer.
-They never sum across a segment boundary: a global cumsum minus the
-prefix at each segment start would cancel catastrophically in float32
-over ~1e5 exp-activated samples.
+The flat sample layout: the training compositor, whose backward is
+autograd through the segmented scans, and the resumable test-time
+compositor. Per-ray sums are segmented scans over the ray-contiguous
+sample buffer. They never sum across a segment boundary: a global cumsum
+minus the prefix at each segment start would cancel catastrophically in
+float32 over ~1e5 exp-activated samples.
+
+The dense (N, S) layout: the same compositors on rows of S slots with a
+validity mask; the transmittance's row scan (`cumsum`) sums in the
+reference's order on every device.
 """
 
 from __future__ import annotations
@@ -211,3 +214,150 @@ def composite_test_flat(
         "alive": acc["alive"] & (t_after > T_threshold),
     }
     return {k: v[0] for k, v in out.items()} if single else out
+
+
+# ---------------------------------------------------------------------------
+# The dense (N, S) layout: every ray's samples in a row of S slots, a
+# validity mask, and per-row scans.
+
+_SCAN_BASE = 16
+
+
+def _window_sums(v: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Over the last axis (at most _SCAN_BASE long): out[i] = v[0] + ... +
+    v[i], or with `reverse` v[i] + ... + v[-1], each summed from the left
+    from 0.0 in float32 (one masked add per position)."""
+    b = v.shape[-1]
+    idx = torch.arange(b, device=v.device)
+    out = torch.zeros_like(v)
+    for k in range(b):
+        if reverse:       # lane i adds v[i + k]
+            term = torch.cat([v[..., k:], v.new_zeros(v.shape[:-1] + (k,))],
+                             dim=-1)
+            out = out + term
+        else:             # lane i adds v[k] where k <= i
+            out = out + torch.where(idx >= k, v[..., k:k + 1], 0.0)
+    return out
+
+
+def _blocked_scan(v: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Inclusive cumulative sum over the last axis (suffix sums with
+    `reverse`) in the order XLA's CPU backend sums `jnp.cumsum` (its
+    reduce-window rewrite, base 16): the axis zero-padded at its end to
+    blocks of 16, each block summed from the left within itself, and the
+    blocks' totals scanned the same way and added to the blocks after
+    (before, reversed) them."""
+    n = v.shape[-1]
+    b = _SCAN_BASE
+    if n <= b:
+        return _window_sums(v, reverse)
+    pad = (-n) % b
+    if pad:
+        v = torch.cat([v, v.new_zeros(v.shape[:-1] + (pad,))], dim=-1)
+    blocks = v.reshape(v.shape[:-1] + (-1, b))
+    within = _window_sums(blocks, reverse)
+    tot = within[..., -1] if not reverse else within[..., 0]
+    inc = _blocked_scan(tot, reverse)
+    zero = inc.new_zeros(inc.shape[:-1] + (1,))
+    if reverse:
+        carry = torch.cat([inc[..., 1:], zero], dim=-1)
+    else:
+        carry = torch.cat([zero, inc[..., :-1]], dim=-1)
+    out = (within + carry[..., None]).reshape(v.shape)
+    return out[..., :n]
+
+
+class _Cumsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v):
+        return _blocked_scan(v, reverse=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _blocked_scan(g, reverse=True)
+
+
+def cumsum(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 cumsum over the last axis, summed in one fixed
+    order on every device: the reference's (`jnp.cumsum` on XLA's CPU
+    backend), bit for bit, forward and backward (the suffix sums of the
+    gradient). torch.cumsum accumulates in float64 on the CPU and scans in
+    parallel on the card, so it agrees with neither."""
+    return _Cumsum.apply(v)
+
+
+def composite_weights(
+    sigmas: torch.Tensor,
+    deltas: torch.Tensor,
+    valid: torch.Tensor,
+    T_threshold: float = 1e-4,
+    prev_transmittance: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample weights w = alpha * T_exclusive * alive on (N, S) rows,
+    T_exclusive = exp(-(cumsum(sd) - sd)) (times the carry-in
+    `prev_transmittance` (N,)), alive while it is above T_threshold: a
+    sample past the cutoff contributes nothing and passes no gradient.
+
+    Returns (w (N, S), T_after (N,)): the transmittance after the row,
+    frozen at its value entering the first dead sample if the ray died in
+    the row."""
+    sd = torch.where(valid, sigmas * deltas, 0.0)
+    alpha = 1.0 - torch.exp(-sd)
+    t_excl = torch.exp(-(cumsum(sd) - sd))
+    if prev_transmittance is not None:
+        t_excl = t_excl * prev_transmittance[..., None]
+    alive = t_excl > T_threshold
+    w = alpha * t_excl * alive
+    dead = ~alive
+    t_frozen = torch.where(dead, t_excl, 0.0).amax(dim=-1)
+    t_last = t_excl[..., -1] * (1.0 - alpha[..., -1])
+    t_after = torch.where(dead.any(dim=-1), t_frozen, t_last)
+    return w, t_after
+
+
+def composite_train(
+    sigmas: torch.Tensor,
+    rgbs: torch.Tensor,
+    deltas: torch.Tensor,
+    ts: torch.Tensor,
+    valid: torch.Tensor,
+    T_threshold: float = 1e-4,
+) -> dict:
+    """Training compositing on the dense layout: sigmas, deltas, ts, valid
+    (..., N, S), rgbs (..., N, S, 3), any leading axes (the experts').
+    Returns opacity, depth (..., N), rgb (..., N, 3), ws (..., N, S) and
+    vr_samples (..., N) int32, the samples that contributed."""
+    w, _ = composite_weights(sigmas, deltas, valid, T_threshold)
+    return {
+        "opacity": w.sum(dim=-1),
+        "depth": (w * ts).sum(dim=-1),
+        "rgb": (w[..., None] * rgbs).sum(dim=-2),
+        "ws": w,
+        "vr_samples": (w > 0).sum(dim=-1, dtype=torch.int32),
+    }
+
+
+def composite_test_block(
+    sigmas: torch.Tensor,
+    rgbs: torch.Tensor,
+    deltas: torch.Tensor,
+    ts: torch.Tensor,
+    valid: torch.Tensor,
+    acc: dict,
+    T_threshold: float = 1e-4,
+) -> dict:
+    """One resumable compositing block of the dense test layout
+    (vren.composite_test_fw semantics): acc carries {opacity, depth,
+    transmittance, alive (N,), rgb (N, 3)}; a dead ray passes through
+    unchanged. Returns the updated carry."""
+    T_in = acc["transmittance"]
+    mask = valid & acc["alive"][:, None]
+    w, t_after = composite_weights(sigmas, deltas, mask, T_threshold,
+                                   prev_transmittance=T_in)
+    return {
+        "opacity": acc["opacity"] + w.sum(dim=-1),
+        "depth": acc["depth"] + (w * ts).sum(dim=-1),
+        "rgb": acc["rgb"] + (w[..., None] * rgbs).sum(dim=-2),
+        "transmittance": t_after,
+        "alive": acc["alive"] & (t_after > T_threshold),
+    }

@@ -1,18 +1,38 @@
-"""MipNeRF-360 distortion loss on the flat (static-CSR) sample layout
-(twin of radnerf_tpu/ops/distortion.py::distortion_loss_flat), in the
-DVGO-v2 prefix-sum form:
+"""MipNeRF-360 distortion loss (twin of radnerf_tpu/ops/distortion.py)
+in the DVGO-v2 prefix-sum form:
 
   loss_ray = sum_s 2*(wts_incl_s * ws_excl_s - ws_incl_s * wts_excl_s)
              + 1/3 * w_s^2 * delta_s
 
-with per-ray segmented scans; its gradient is autograd's.
+on the dense (N, S) layout with row scans, and on the flat (static-CSR)
+layout with per-ray segmented scans; its gradient is autograd's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .compositing import segmented_cumsum
+from .compositing import cumsum, segmented_cumsum
+
+
+def distortion_loss(
+    ws: torch.Tensor,
+    deltas: torch.Tensor,
+    ts: torch.Tensor,
+    valid: torch.Tensor,
+) -> torch.Tensor:
+    """Per-ray distortion loss (N,) of dense (N, S) weights, deltas, ts
+    and validity mask."""
+    w = torch.where(valid, ws, 0.0)
+    wt = w * ts
+    ws_incl = cumsum(w)
+    wts_incl = cumsum(wt)
+    ws_excl = ws_incl - w
+    wts_excl = wts_incl - wt
+    per_sample = 2.0 * (wts_incl * ws_excl - ws_incl * wts_excl) + (
+        w * w * deltas / 3.0
+    )
+    return torch.where(valid, per_sample, 0.0).sum(dim=-1)
 
 
 def distortion_loss_flat(

@@ -1,11 +1,13 @@
 """Occupancy-grid ray marching on the closed-form sample lattice (twin of
-the flat-layout half of radnerf_tpu/ops/marching.py: the test-time march,
-and the training-time marches of one grid and of the union of K grids).
+radnerf_tpu/ops/marching.py: the test-time marches and the training-time
+marches of one grid and of the union of K grids).
 
 The CUDA marcher's step schedule t_{k+1} = t_k + clamp(t_k * f, dt_min,
 dt_max) is a deterministic lattice of the start t, so a block of K
 candidates per ray is evaluated in closed form, occupancy-tested in
-parallel, and the kept ones compacted into a flat static-CSR buffer.
+parallel, and the kept ones compacted: into a flat static-CSR buffer, or
+into dense (N, S) rows (the first S kept candidates of each ray, by a
+per-row binary search of the running count).
 
 `occupancy_lookup_bricks` launches the CUDA kernel `csrc/occ_lookup.cu` on
 CUDA tensors and runs `occupancy_lookup` (the same function: it is the
@@ -415,3 +417,88 @@ def march_rays_union_flat(
         occupancy_lookup(sel_xyz, sel_dt, occ, cfg) for occ in occ_grids
     ]) & m["valid"][None, :]
     return m, member
+
+
+def _compact_keep(t, dt, keep, S: int):
+    """The first S kept candidates of each ray in dense (N, S) slots: slot
+    s of ray r holds candidate searchsorted(cumsum(keep[r]), s + 1), the
+    left side, clamped to K - 1. Returns (ts, deltas, valid, n_samples):
+    ts and deltas (N, S) (zero on unused slots; not differentiated),
+    valid (N, S) bool, n_samples (N,) int32."""
+    N, K = keep.shape
+    dev = keep.device
+    within = torch.cumsum(keep.to(torch.int32), dim=1, dtype=torch.int32)
+    targets = torch.arange(1, S + 1, dtype=torch.int32, device=dev)
+    k_idx = torch.searchsorted(
+        within, targets.expand(N, S).contiguous(), side="left"
+    ).clamp_max(K - 1)
+    n_samples = within[:, -1].clamp_max(S)
+    valid = torch.arange(S, dtype=torch.int32, device=dev)[None, :] < (
+        n_samples[:, None])
+    ts = torch.where(valid, torch.gather(t, 1, k_idx), 0.0).detach()
+    deltas = torch.where(valid, torch.gather(dt, 1, k_idx), 0.0).detach()
+    return ts, deltas, valid, n_samples
+
+
+def march_rays_train(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    t1: torch.Tensor,
+    t2: torch.Tensor,
+    occ_grid: torch.Tensor,
+    cfg: MarchConfig,
+    noise: torch.Tensor | None = None,
+) -> dict:
+    """Training-time march of one occupancy grid into the dense layout:
+    each ray's first cfg.samples_per_ray occupied lattice candidates from
+    its start t1 jittered by noise * dt(t1) (a ray with t1 < 0 misses).
+    Returns ts, deltas (N, S) (zero on unused slots), valid (N, S) and
+    n_samples (N,) int32."""
+    t, dt, xyz, in_range = _lattice_candidates(
+        rays_o, rays_d, t1, t2, cfg, noise
+    )
+    keep = in_range & occupancy_lookup_bricks(xyz, dt, occ_grid, cfg)
+    ts, deltas, valid, n_samples = _compact_keep(
+        t, dt, keep, cfg.samples_per_ray)
+    return {"ts": ts, "deltas": deltas, "valid": valid,
+            "n_samples": n_samples}
+
+
+def march_rays_test_block(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    cursor: torch.Tensor,
+    t2: torch.Tensor,
+    occ_grid: torch.Tensor,
+    cfg: MarchConfig,
+    n_samples: int,
+    k_block: int = 512,
+) -> dict:
+    """One test-time march block of the dense layout (twin of
+    vren.raymarching_test): from each ray's `cursor`, the next `k_block`
+    lattice candidates, the first `n_samples` occupied ones compacted.
+    The cursor resumes right after the n_samples-th kept candidate, or
+    past the block when fewer were kept, clamped to t2.
+
+    Returns ts, deltas, valid (N, n_samples), n_eff (N,) int32 and
+    new_cursor (N,)."""
+    N = rays_o.shape[0]
+    S, K = n_samples, k_block
+    dev = rays_o.device
+    k = torch.arange(K, dtype=torch.int32, device=dev)[None, :]
+    t = sample_lattice(cursor[:, None], k, cfg)          # (N, K)
+    dt = calc_dt(t, cfg)
+    in_range = (cursor[:, None] >= 0) & (t < t2[:, None])
+    xyz = fma32(t[..., None], rays_d[:, None, :], rays_o[:, None, :])
+    keep = in_range & occupancy_lookup_bricks(xyz, dt, occ_grid, cfg)
+    ts, deltas, valid, got = _compact_keep(t, dt, keep, S)
+    within = torch.cumsum(keep.to(torch.int32), dim=1, dtype=torch.int32)
+    took_all = within[:, -1] >= S
+    # the S-th kept candidate: the first index where the count reaches S
+    idx_s = ((within == S) & keep).to(torch.uint8).argmax(dim=1)
+    next_idx = torch.where(took_all, idx_s + 1, K)
+    new_cursor = sample_lattice(cursor, next_idx, cfg)
+    new_cursor = torch.where(
+        torch.minimum(new_cursor, t2) == new_cursor, new_cursor, t2)
+    return {"ts": ts, "deltas": deltas, "valid": valid, "n_eff": got,
+            "new_cursor": new_cursor}

@@ -2,8 +2,8 @@
 and defaults, so that the reference's shell scripts translate
 mechanically).
 
-Three flags whose paths the port has not ported yet (--layout dense,
---num_devices above 1, --multihost) are accepted here and refused by
+Two flags whose paths the port has not ported yet (--num_devices above
+1, --multihost) are accepted here and refused by
 `train.trainer.NeRFSystem` with a NotImplementedError that names the
 ROADMAP.md item.
 """

@@ -1,5 +1,5 @@
 """Block-NeRF, Mega-NeRF and NGP-zoo MoE rendering (twin of
-radnerf_tpu/render/block_render.py), on the flat layout.
+radnerf_tpu/render/block_render.py).
 
 block/mega: the K submodels share density and the occupancy grid; only
 the rgb head differs, and the caller supplies the gating code (a spatial
@@ -22,26 +22,28 @@ from ..models.mlp import apply_mlp, slice_stacked
 from ..models.mngp import expert_forward_fn
 from ..models.ngp import pack_table
 from .ml_render import _stack_results
-from .render import DENSE_LAYOUT, RenderConfig, render_test, render_train
+from .render import RenderConfig, render_test, render_train
 
 
 def _gated_forward_fn(params, state, cfg: BlockNGPConfig,
-                      gating_code: torch.Tensor,
+                      gating_code: torch.Tensor, dense_S: int | None = None,
                       packed: torch.Tensor | None = None):
     """A field closure that runs all K rgb heads and mixes them by each
-    sample's ray's gate (gating_code (N_rays, K), gathered by ray_id).
-    The flat layout only: a call without ray_id (the dense layout's
-    ray-major samples) raises."""
+    sample's ray's gate (gating_code (N_rays, K)): on the flat layout the
+    render passes each sample's ray_id and the gate is gathered by it; on
+    the dense layout the samples arrive ray-major, dense_S a ray, and
+    each ray's gate is repeated dense_S times."""
 
     def fwd(x, d, ray_id=None):
-        if ray_id is None:
-            raise NotImplementedError(DENSE_LAYOUT)
         sigmas, h = block_density(params, state, cfg, x, return_feat=True,
                                   packed=packed)
         rgbs_k = apply_mlp(params["rgb"], block_rgb_input(h, d, cfg),
                            out_act=cfg.rgb_act.lower(),
                            compute_dtype=cfg.cdtype)          # (K, B, 3)
-        gate = gating_code[ray_id.long()]
+        if ray_id is not None:
+            gate = gating_code[ray_id.long()]
+        else:
+            gate = gating_code.repeat_interleave(dense_S, dim=0)
         rgb = torch.einsum("nk,knc->nc", gate, rgbs_k.to(torch.float32))
         return sigmas, rgb
 
@@ -72,7 +74,8 @@ def block_render_train(
     scaled by the gate's row sum, and gating_code."""
     out = render_train(
         None, state, cfg, rays_o, rays_d, rcfg,
-        forward_fn=_gated_forward_fn(params, state, cfg, gating_code),
+        forward_fn=_gated_forward_fn(params, state, cfg, gating_code,
+                                     dense_S=rcfg.samples_per_ray),
         noise=noise, gen=gen, forward_takes_ray_id=True)
     return _scale_by_gate(out, gating_code)
 
@@ -87,12 +90,13 @@ def block_render_test(
     rcfg: RenderConfig,
 ) -> dict:
     """Test-time render under the gate (N, K), on a table packed once per
-    call; each flat-buffer sample takes its ray's gate."""
+    call; each sample takes its ray's gate."""
     packed = pack_table(params["hash_table"], cfg)
     out = render_test(
         None, state, cfg, rays_o, rays_d, rcfg,
         forward_fn=_gated_forward_fn(params, state, cfg, gating_code,
-                                     packed),
+                                     dense_S=rcfg.test_block_samples,
+                                     packed=packed),
         forward_takes_ray_id=True)
     return _scale_by_gate(out, gating_code)
 

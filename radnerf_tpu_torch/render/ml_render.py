@@ -1,18 +1,20 @@
-"""Rad-NeRF MoE render, training and test time (twin of the flat-layout
-paths of radnerf_tpu/render/ml_render.py), and the chunked camera render
-of the validation loop (MoE or single field).
+"""Rad-NeRF MoE render, training and test time (twin of
+radnerf_tpu/render/ml_render.py), and the chunked camera render of the
+validation loop (MoE or single field).
 
 Gate the rays, render the K sub-NeRFs, gate-compose. With a shared
 encoder, union sampling and the flat layout, the rays are marched ONCE
 against the union of the experts' occupancy grids and hash-encoded ONCE;
 each expert masks sigma to its own membership (a non-member sample has
-alpha 0, as if never marched). Without union sampling, each expert
-marches its own grid (with the start jitter shifted by k/K) and the K
-sample sets share one encode; with one hash table per expert
-(shared_encoder=False), each expert renders as a single field. Test time
-loops, each expert keeping its own resumable compositing carry; the
-reference's `lax.while_loop` is a Python loop whose condition is read
-back from the device once per iteration.
+alpha 0, as if never marched). Otherwise, with a shared encoder (the
+dense layout, or no union sampling), each expert marches its own grid
+(with the start jitter shifted by k/K) and the K sample sets share one
+encode; with one hash table per expert (shared_encoder=False), each
+expert renders as a single field. Test time loops, each expert keeping
+its own resumable compositing carry (the union render on the flat test
+layout; each expert's single-field render otherwise); the reference's
+`lax.while_loop` is a Python loop whose condition is read back from the
+device once per iteration.
 """
 
 from __future__ import annotations
@@ -27,18 +29,20 @@ from ..models.mngp import (
     MNGPConfig, _encode, expert_forward_fn, expert_tables, pack_for_encode,
 )
 from ..models.ngp import scene_center_half
-from ..ops.compositing import composite_test_flat, composite_train_flat
+from ..ops.compositing import (
+    composite_test_flat, composite_train, composite_train_flat,
+)
 from ..ops.fma import fma32
 from ..ops.intersection import scene_near_far
 from ..ops.marching import (
-    march_rays_test_flat, march_rays_train_flat, march_rays_union_flat,
-    occupancy_lookup,
+    march_rays_test_flat, march_rays_train, march_rays_train_flat,
+    march_rays_union_flat, occupancy_lookup,
 )
 from ..ops.sh import sh_encode_dir
 from ..ops.trunc_exp import trunc_exp
 from .render import (
-    DENSE_LAYOUT, NEAR_DISTANCE, RenderConfig, background_color,
-    render_test, render_train,
+    NEAR_DISTANCE, RenderConfig, background_color, render_test,
+    render_train,
 )
 
 
@@ -122,53 +126,74 @@ def _expert_samples_union_flat(
     }
 
 
-def _expert_samples_per_expert_flat(
+def _expert_samples_per_expert(
     params, state, cfg: MNGPConfig, rays_o, rays_d, rcfg: RenderConfig,
     noises: torch.Tensor, gen: torch.Generator | None = None,
 ) -> dict:
     """Per-expert training render with a shared encoder: each expert
-    marches its own grid (noises[k] its start jitter), then ONE hash
-    encode of the K x B samples, per-expert MLPs and flat compositing,
-    and one background per expert."""
+    marches its own grid (noises[k] its start jitter) on rcfg.layout,
+    then ONE hash encode of the K sample sets (flat: K x B samples;
+    dense: K x N x S slots, padding included), per-expert MLPs and
+    compositing, and one background per expert."""
     K = cfg.n_experts
     dev = rays_o.device
     center, half = scene_center_half(state)
     ro, rd = rays_o.detach(), rays_d.detach()      # as in the union render
     t1, t2 = scene_near_far(ro, rd, center, half, NEAR_DISTANCE)
     mcfg = rcfg.march(cfg)
-    ms = [march_rays_train_flat(ro, rd, t1, t2, state["occ"][k], mcfg,
-                                noises[k], budget_per_ray=rcfg.budget_per_ray)
-          for k in range(K)]
-    m = _stack_results(ms)                          # (K, B) / (K, N)
-    rid = m["ray_id"].reshape(-1).long()
-    xyz = fma32(m["ts"].reshape(-1)[:, None], rays_d[rid], rays_o[rid])
-    B = m["ts"].shape[1]                                        # (K*B, 3)
-
-    feat = _encode(params, state, cfg, xyz).reshape(K, B, -1)   # ONCE
-    h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
+    dense = rcfg.layout == "dense"
     d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
-    d_enc = d_enc_ray[rid].reshape(K, B, -1)
+    if dense:
+        m = _stack_results([
+            march_rays_train(ro, rd, t1, t2, state["occ"][k], mcfg,
+                             noises[k]) for k in range(K)])   # (K, N, S)
+        N, S = m["ts"].shape[1:]
+        P = N * S
+        xyz = fma32(m["ts"][..., None], rays_d[None, :, None, :],
+                    rays_o[None, :, None, :]).reshape(-1, 3)  # (K*N*S, 3)
+        d_enc = d_enc_ray[None, :, None, :].expand(
+            K, N, S, d_enc_ray.shape[-1]).reshape(K, P, -1)
+    else:
+        m = _stack_results([
+            march_rays_train_flat(ro, rd, t1, t2, state["occ"][k], mcfg,
+                                  noises[k],
+                                  budget_per_ray=rcfg.budget_per_ray)
+            for k in range(K)])                             # (K, B) / (K, N)
+        rid = m["ray_id"].reshape(-1).long()
+        xyz = fma32(m["ts"].reshape(-1)[:, None], rays_d[rid], rays_o[rid])
+        P = m["ts"].shape[1]                                # (K*B, 3)
+        d_enc = d_enc_ray[rid].reshape(K, P, -1)
+
+    feat = _encode(params, state, cfg, xyz).reshape(K, P, -1)   # ONCE
+    h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
     rgbs = apply_mlp(
         params["rgb"], torch.cat([d_enc, h[..., 1:]], dim=-1),
         out_act=cfg.rgb_act.lower(), compute_dtype=cfg.cdtype,
-    ).to(torch.float32)                                         # (K, B, 3)
+    ).to(torch.float32)                                         # (K, P, 3)
     sigmas = trunc_exp(h[..., 0])
-    out = _stack_results([
-        composite_train_flat(
-            sigmas[k], rgbs[k], m["deltas"][k], m["ts"][k],
-            m["ray_id"][k], m["offsets"][k], m["cap"][k], m["valid"][k],
-            T_threshold=rcfg.T_threshold)
-        for k in range(K)])
+    if dense:
+        out = composite_train(
+            sigmas.reshape(K, N, S), rgbs.reshape(K, N, S, 3), m["deltas"],
+            m["ts"], m["valid"], T_threshold=rcfg.T_threshold)
+        extra = {"rm_samples": m["n_samples"].sum()}
+    else:
+        out = _stack_results([
+            composite_train_flat(
+                sigmas[k], rgbs[k], m["deltas"][k], m["ts"][k],
+                m["ray_id"][k], m["offsets"][k], m["cap"][k], m["valid"][k],
+                T_threshold=rcfg.T_threshold)
+            for k in range(K)])
+        extra = {k: m[k] for k in ("ray_id", "offsets", "cap")}
+        extra["rm_samples"] = m["total"].sum()
     bgs = torch.stack([background_color(rcfg, gen, dev) for _ in range(K)])
     return {
         "rgb": out["rgb"] + bgs[:, None, :] * (1.0 - out["opacity"][..., None]),
         "depth": out["depth"],
         "opacity": out["opacity"],
         "ws": out["ws"],
-        **{k: m[k] for k in ("ts", "deltas", "valid", "n_samples", "ray_id",
-                             "offsets", "cap")},
-        "rm_samples": m["total"].sum(),
+        **{k: m[k] for k in ("ts", "deltas", "valid", "n_samples")},
         "total_samples": out["vr_samples"].sum(),
+        **extra,
     }
 
 
@@ -190,23 +215,24 @@ def ml_render_train(
     the union render shares it, the per-expert renders shift it to
     mod(noise + k/K, 1) for expert k; without it the jitter is drawn from
     `gen` (K draws a ray on the per-expert renders), which also draws the
-    random backgrounds.
+    random backgrounds. Union sampling applies on the flat layout only;
+    on the dense one each expert marches its own grid.
 
     Returns rgb (N, 3), depth (N, K), opacity (N,), gating_code (N, K),
     gating_importance (K,), independent_rgbs (K, N, 3), the per-expert
-    flat buffers (ws, deltas, ts, valid, ray_id, offsets, cap, each (K,
-    ...)), rm_samples, budget_util (the union buffer's share used; the
-    unshared renders' mean; 0 on the shared per-expert render, which
-    measures none, as in the reference) and total_samples."""
-    if rcfg.layout != "flat":
-        raise NotImplementedError(DENSE_LAYOUT)
+    sample buffers (flat: ws, deltas, ts, valid, ray_id, offsets, cap,
+    each (K, ...); dense: ws, deltas, ts, valid (K, N, S)), rm_samples,
+    budget_util (the union buffer's share used; the unshared flat
+    renders' mean; 0 where no render measures one, as in the reference)
+    and total_samples."""
     K, N = cfg.n_experts, rays_o.shape[0]
     dev = rays_o.device
     gate, importance, _ = apply_ray_gate(
         gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
         compute_dtype=cfg.cdtype,
     )
-    union = cfg.shared_encoder and rcfg.union_sampling
+    union = (cfg.shared_encoder and rcfg.union_sampling
+             and rcfg.layout == "flat")
     if noise is None:
         noise = torch.rand((N,) if union else (K, N), generator=gen,
                            device=dev)
@@ -218,8 +244,8 @@ def ml_render_train(
         res = _expert_samples_union_flat(params, state, cfg, rays_o, rays_d,
                                          rcfg, noise, gen)
     elif cfg.shared_encoder:
-        res = _expert_samples_per_expert_flat(params, state, cfg, rays_o,
-                                              rays_d, rcfg, noise, gen)
+        res = _expert_samples_per_expert(params, state, cfg, rays_o,
+                                         rays_d, rcfg, noise, gen)
     else:
         # unshared_MNGP: K single-field renders, each with its own table
         res = _stack_results([
@@ -239,7 +265,7 @@ def ml_render_train(
         "gating_importance": importance,
         "independent_rgbs": res["rgb"],
         **{k: res[k] for k in ("ws", "deltas", "ts", "valid", "ray_id",
-                               "offsets", "cap")},
+                               "offsets", "cap") if k in res},
         "rm_samples": res["rm_samples"].sum(),
         "budget_util": (res["budget_util"].mean() if "budget_util" in res
                         else torch.zeros((), device=dev)),
@@ -341,20 +367,20 @@ def ml_render_test(
     gate_type: str = "ray",
 ) -> dict:
     """Test-time MoE render of (N, 3) rays: the union render (shared
-    encoder, union sampling), else K single-field renders, one per
-    expert, each on its own grid, with the shared table or its own, packed
-    once per call. Returns rgb (N, 3), depth (N, K), opacity (N,),
+    encoder, union sampling, the flat test layout), else K single-field
+    renders (render_test on rcfg.test_layout), one per expert, each on
+    its own grid, with the shared table or its own, packed once per
+    call. Returns rgb (N, 3), depth (N, K), opacity (N,),
     gating_code (N, K), gating_importance (K,), independent_rgbs (K, N,
     3), total_samples, and iterations (the loops' count, summed over the
     experts' loops)."""
-    if rcfg.test_layout != "flat":
-        raise NotImplementedError(DENSE_LAYOUT)
     with torch.no_grad():
         gate, importance, _ = apply_ray_gate(
             gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
             compute_dtype=cfg.cdtype,
         )
-        if cfg.shared_encoder and rcfg.union_sampling:
+        if (cfg.shared_encoder and rcfg.union_sampling
+                and rcfg.test_layout == "flat"):
             res = _ml_test_union_flat(params, state, cfg, rays_o, rays_d,
                                       rcfg)
         else:

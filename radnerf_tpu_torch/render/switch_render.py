@@ -23,11 +23,13 @@ def switch_render_train(
     gen: torch.Generator | None = None,
 ) -> dict:
     """Training render of (N, 3) rays (render_train's outputs) and the
-    gate's: gating_code (B, K) and gating_importance (K,). The gate runs
-    on every slot of the flat buffer, padding included, so the load
-    counts the padding slots, as in the reference. `noise` (N,) is the
-    start jitter, `gate_noise` (B, K) the gate's Gaussian noise, one row
-    a slot; either is drawn from `gen` when not given."""
+    gate's: gating_code (P, K) and gating_importance (K,). The gate runs
+    on every slot, padding included (the flat buffer's B slots, or the
+    dense layout's N x S, a pad slot's point at its ray's origin clamped
+    into the box), so the load counts the padding slots, as in the
+    reference. `noise` (N,) is the start jitter, `gate_noise` (P, K) the
+    gate's Gaussian noise, one row a slot; either is drawn from `gen`
+    when not given."""
     out = render_train(
         None, state, cfg, rays_o, rays_d, rcfg,
         forward_fn=lambda x, d: switch_forward(

@@ -31,7 +31,7 @@ from ..models.switch import (
 from ..render.block_render import block_render_test, block_render_train
 from ..render.ml_render import get_rays, render_rays_chunked
 from ..render.switch_render import switch_render_test, switch_render_train
-from .trainer import NeRFSystem
+from .trainer import NeRFSystem, budget_util
 
 
 def kmeans_cameras(positions: np.ndarray, k: int, iters: int = 50,
@@ -63,8 +63,9 @@ def other_loss_fn(kind: str, anchors: torch.Tensor | None,
     """The Trainer's loss for `kind`: (bundle, model_state, batch, data,
     cfg, rcfg, tcfg, gen) -> (loss, aux {psnr, rm_samples, budget_util}).
     The batch's "noise" is the start jitter; for switch an optional
-    "gate_noise" (N, budget_per_ray, K) is the gate's noise of each ray's
-    slots (else drawn from `gen`). nerf_loss with the opacity term, and
+    "gate_noise" (N, budget_per_ray, K) on the flat layout or (N,
+    samples_per_ray, K) on the dense one is the gate's noise of each
+    ray's slots (else drawn from `gen`). nerf_loss with the opacity term, and
     for switch the cv term on the gate's load. Pose corrections
     (--optimize_ext) are not applied, as in the reference's loss."""
 
@@ -96,7 +97,7 @@ def other_loss_fn(kind: str, anchors: torch.Tensor | None,
         aux = {
             "psnr": psnr_fn(out["rgb"], target["rgb"]),
             "rm_samples": out["rm_samples"].to(torch.float32),
-            "budget_util": out["budget_util"],
+            "budget_util": budget_util(out),
         }
         return total_loss(ld), aux
 

@@ -14,8 +14,9 @@ per-image pose corrections (axis-angle dR, translation dT) refine each
 batch's cameras before its rays are cast, and take their own Adam group
 at a constant 1e-8 with optax's eps 1e-8. Beside it the density grids
 are updated every 16 steps (every cell below `warmup_steps`) and, with
---adaptive_budget (the default), the flat-layout sample budget is
-re-picked from the measured buffer utilization. Batches are drawn on the device from a
+--adaptive_budget (the default), the flat layout's sample budget is
+re-picked from the measured buffer utilization (--layout dense has no
+budget). Batches are drawn on the device from a
 device-resident ray store; the per-ray start jitter is drawn from a
 torch.Generator and travels in the batch.
 """
@@ -52,7 +53,9 @@ from ..models.ngp import (
 from ..ops.hashgrid import hash_family, resolve_impl
 from ..parallel.step import make_train_step, tree_leaves
 from ..render.ml_render import get_rays, ml_render_train, render_rays_chunked
-from ..render.render import RenderConfig, render_train
+from ..render.render import (
+    RenderConfig, render_test_compacted, render_train,
+)
 from ..utils.ckpt import (
     AsyncCkptWriter, load_ckpt, load_weights_into, save_ckpt, slim_ckpt,
 )
@@ -120,6 +123,7 @@ class TrainConfig:
     depth_mutual_loss_w: float = 5e-3
     random_bg: bool = False          # a random background per expert
     adaptive_budget: bool = True     # re-pick the budget bucket
+    layout: str = "flat"             # training samples: "flat" | "dense"
 
     @property
     def n_microbatch(self) -> int:
@@ -131,14 +135,15 @@ class TrainConfig:
 def render_config(cfg: NGPConfig, tcfg: TrainConfig) -> RenderConfig:
     """The trainer's render settings: a constant-dt lattice and white
     background at scale <= 0.5 (else black, or random with random_bg),
-    the flat layout, and a union budget governed by the bucket ladder
-    with the adaptive budget (factor 1), else K x budget_per_ray (factor
-    0: auto-K, so quality never depends on a controller)."""
+    the training layout of tcfg (the test layout stays flat), and a union
+    budget governed by the bucket ladder with the adaptive budget (factor
+    1), else K x budget_per_ray (factor 0: auto-K, so quality never
+    depends on a controller)."""
     return RenderConfig(
         exp_step_factor=1 / 256 if cfg.scale > 0.5 else 0.0,
         samples_per_ray=tcfg.samples_per_ray,
         random_bg=tcfg.random_bg,
-        layout="flat",
+        layout=tcfg.layout,
         budget_per_ray=tcfg.budget_per_ray,
         union_budget_factor=1.0 if tcfg.adaptive_budget else 0.0,
     )
@@ -219,9 +224,17 @@ def loss_fn(bundle: dict, model_state: dict, batch: dict, data: dict,
     aux = {
         "psnr": psnr_fn(out["rgb"], target["rgb"]),
         "rm_samples": out["rm_samples"].to(torch.float32),
-        "budget_util": out["budget_util"],
+        "budget_util": budget_util(out),
     }
     return total_loss(ld), aux
+
+
+def budget_util(out: dict) -> torch.Tensor:
+    """A render's budget_util, 0 where it measures none (the dense
+    layout, the shared per-expert flat render)."""
+    if "budget_util" in out:
+        return out["budget_util"]
+    return torch.zeros((), device=out["rgb"].device)
 
 
 def sample_batch(gen: torch.Generator, data: dict, batch_size: int) -> dict:
@@ -310,7 +323,7 @@ class Trainer:
         return loss, aux
 
     def maybe_adapt_budget(self) -> None:
-        if self.last_budget_util is None:
+        if self.last_budget_util is None or self.rcfg.layout != "flat":
             return
         new = next_budget_bucket(self.rcfg.budget_per_ray,
                                  self.last_budget_util, self.buckets)
@@ -321,9 +334,9 @@ class Trainer:
         """The inner loop of the reference's fit: a grid update every
         UPDATE_INTERVAL steps (all cells below warmup_steps), the
         adaptive budget at grid-update boundaries (with
-        tcfg.adaptive_budget), a batch, a step. `on_step(step, loss,
-        aux)` sees every step's (device) results."""
-        adaptive = self.tcfg.adaptive_budget
+        tcfg.adaptive_budget and the flat layout), a batch, a step.
+        `on_step(step, loss, aux)` sees every step's (device) results."""
+        adaptive = self.tcfg.adaptive_budget and self.rcfg.layout == "flat"
         for _ in range(n_steps):
             step = self.global_step
             if step % UPDATE_INTERVAL == 0:
@@ -344,10 +357,9 @@ def refuse_unported(h) -> None:
     has not ported, with its ROADMAP.md item."""
     refused = [
         msg for cond, msg in (
-            (h.layout == "dense", "--layout dense (queue 1, item 5)"),
-            (h.num_devices > 1, "--num_devices > 1 (queue 1, item 5: "
+            (h.num_devices > 1, "--num_devices > 1 (queue 1, item 3: "
                                 "parallel/)"),
-            (h.multihost, "--multihost (queue 1, item 5: parallel/)"),
+            (h.multihost, "--multihost (queue 1, item 3: parallel/)"),
         ) if cond
     ]
     if refused:
@@ -409,6 +421,7 @@ class NeRFSystem:
             distortion_loss_w=h.distortion_loss_w, cv_loss_w=h.cv_loss_w,
             depth_mutual_loss_w=h.depth_mutual_loss_w,
             random_bg=h.random_bg, adaptive_budget=h.adaptive_budget,
+            layout=h.layout,
         )
         if self.tcfg.n_microbatch > 1:
             self.logger.info(
@@ -553,12 +566,21 @@ class NeRFSystem:
         """Test-time render of camera-frame `directions` (P, 3) from
         `pose` (3, 4), in chunks of --val_chunk rays (render_rays_chunked):
         rgb (P, 3), depth (P,) (the MoE's gated consensus, or the single
-        field's own), opacity (P,), total_samples."""
+        field's own), opacity (P,), total_samples. The single field on
+        the dense test layout renders with alive-ray compaction between
+        loop phases (render_test_compacted; `val_compaction` False on the
+        options turns it off)."""
+        rcfg = self.trainer.rcfg
+        render = None
+        if (not self.moe and rcfg.test_layout == "dense"
+                and getattr(self.h, "val_compaction", True)):
+            render = lambda ro, rd: render_test_compacted(
+                self.params, self.model_state, self.cfg, ro, rd, rcfg)
         return render_rays_chunked(
             self.params, self.model_state, self.cfg, self.gate_params,
-            directions, pose, self.trainer.rcfg, chunk=self.h.val_chunk,
+            directions, pose, rcfg, chunk=self.h.val_chunk,
             gate_type=self.h.gate_type,
-            mean_dir=self.trainer.data["mean_dir"])
+            mean_dir=self.trainer.data["mean_dir"], render=render)
 
     def validate(self, epoch: int) -> dict:
         """Render every test camera; PSNR and SSIM (and LPIPS with

@@ -410,13 +410,28 @@ def test_block_render_train_and_every_gradient_leaf_match_jax(patched):
 
 
 def test_block_closure_refuses_the_dense_layout():
+    """The dense layout, once refused, is ported: called without ray_id
+    the closure repeats each ray's gate dense_S times (ray-major slots),
+    exactly as gathering it by each slot's ray; block_render_train runs
+    on the dense layout (held against JAX in test_torch_dense)."""
     _, (tcfg, tp, ts) = _models("block")
-    fwd = tbr._gated_forward_fn(tp, ts, tcfg, _t(_gate_codes()))
-    with pytest.raises(NotImplementedError, match="dense-layout bullet"):
-        fwd(torch.zeros(4, 3), torch.ones(4, 3))
-    with pytest.raises(NotImplementedError, match="dense"):
-        tbr.block_render_train(tp, ts, tcfg, *map(_t, _rays()),
-                               _t(_gate_codes()), RenderConfig())
+    gate = _t(_gate_codes(4))
+    fwd = tbr._gated_forward_fn(tp, ts, tcfg, gate, dense_S=3)
+    rng = np.random.default_rng(0)
+    x = _t(rng.uniform(-0.4, 0.4, (12, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(_t(rng.normal(size=(12, 3)).astype(
+        np.float32)), dim=1)
+    with torch.no_grad():
+        dense = fwd(x, d)
+        by_ray = fwd(x, d, ray_id=torch.arange(4).repeat_interleave(3))
+    for a, b in zip(dense, by_ray):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        out = tbr.block_render_train(tp, ts, tcfg, *map(_t, _rays(16)),
+                                     _t(_gate_codes(16)),
+                                     RenderConfig(layout="dense",
+                                                  samples_per_ray=32))
+    assert out["ws"].shape == (16, 32) and torch.isfinite(out["rgb"]).all()
 
 
 # ------------------------------------------------------------ test renders

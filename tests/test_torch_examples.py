@@ -11,8 +11,9 @@ import torch
 
 from radnerf_tpu_torch.examples import (
     bench_brick3, bench_brick_fetch, bench_brick_grad, bench_gather_shapes,
-    bench_hashgrid, bench_scatter, bench_vmem_gather, convergence,
-    profile_step, proto_pallas_gather, smoke_e2e, trace_step,
+    bench_hashgrid, bench_render, bench_scatter, bench_vmem_gather,
+    convergence, profile_ops, profile_step, proto_pallas_gather, smoke_e2e,
+    trace_step,
 )
 from radnerf_tpu_torch.train import trainer as tt
 
@@ -89,6 +90,29 @@ SCRIPTS = {
                                   "--device", "cpu"]),
         ['{"step": 1, "psnr":', 'SUMMARY {"exp": "hard"',
          '"render": "per_expert"']),
+    "convergence_sphere_dense": (
+        lambda: convergence.main(["sphere", "--layout", "dense", "--steps",
+                                  "2", "--batch", "64", "--eval_every", "1",
+                                  "--eval_rays", "128", "--levels", "4",
+                                  "--log2_T", "10", "--device", "cpu"]),
+        ['{"step": 1, "psnr":', 'SUMMARY {"exp": "sphere"',
+         '"layout": "dense"']),
+    "bench_render_flat": (
+        lambda: bench_render.run(32, 512, 2, 128, 8, "flat", plain=True,
+                                 log2_T=12, device="cpu"),
+        ["render_test (flat, plain)", "flat + host compaction",
+         "[cold]", "[warm]"]),
+    "bench_render_dense": (
+        lambda: bench_render.run(32, 512, 2, 128, 8, "dense", plain=True,
+                                 log2_T=12, device="cpu"),
+        ["render_test (dense, plain)", "dense + host compaction"]),
+    "profile_ops": (
+        lambda: profile_ops.run(4096, 64, 32, log2_T=12, device="cpu",
+                                iters=1),
+        ["hashgrid fwd (4k pts, L16 T2^12)", "hashgrid fwd+bwd",
+         "march (64 rays, K=1024 cand)", "composite fwd (64x32)",
+         "composite fwd+bwd", "geo MLP fwd (4k x 32->64->17)",
+         "geo MLP fwd+bwd"]),
     # the system's density grid (128^3, no flag) cut to 32^3 and 4 levels,
     # as tests/test_torch_system.py does
     "convergence_scene": (

@@ -185,15 +185,18 @@ def test_render_rays_chunked_pads_and_gates_depth(models):
 
 
 def test_unported_paths_raise(models):
-    """The dense test layout is refused, with or without union sampling
-    (the per-expert flat renders are held against JAX in
-    test_torch_expert_renders)."""
+    """The dense test layout, once refused, is ported: with or without
+    union sampling (which applies to the flat test layout only) it is
+    each expert's dense render_test, the two renders equal (held against
+    JAX in test_torch_dense)."""
     _, (tcfg, tp, tg, ts) = models
     o, d = map(torch.from_numpy, _rays(8))
-    for union in (True, False):
-        rcfg = RenderConfig(test_layout="dense", union_sampling=union)
-        with pytest.raises(NotImplementedError, match="dense"):
-            ml_render_test(tp, ts, tcfg, tg, o, d, d, rcfg)
+    outs = [ml_render_test(tp, ts, tcfg, tg, o, d, d, RenderConfig(
+        test_layout="dense", union_sampling=union)) for union in (True,
+                                                                  False)]
+    for k in ("rgb", "depth", "opacity", "total_samples"):
+        assert torch.equal(outs[0][k], outs[1][k]), k
+    assert outs[0]["iterations"] == outs[1]["iterations"] > 0
 
 
 def test_get_rays_writes_out_the_cpu_einsum():

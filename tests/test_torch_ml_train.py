@@ -279,18 +279,31 @@ def test_five_adam_steps_track_the_jax_loss(patched):
 
 
 def test_unported_training_paths_raise():
-    """The dense layout, with or without union sampling, and with either
-    encoder, is refused before anything is computed (the per-expert and
-    unshared flat renders are held against JAX in
-    test_torch_expert_renders)."""
-    o = torch.zeros(8, 3)
-    d = torch.nn.functional.normalize(torch.ones(8, 3), dim=1)
+    """The dense layout, once refused, is ported: with either encoder,
+    union sampling (the flat layout's) leaves it unchanged, each expert
+    marching its own grid into (K, N, S) rows (held against JAX in
+    test_torch_dense)."""
+    jcfg, jbundle, jstate = _setup()
+    tp, tg = params_from_jax(_np(jbundle["model"]), _np(jbundle["gate"]),
+                             device="cpu")
+    ts = state_from_jax(_np(jstate), device="cpu")
+    rng = np.random.default_rng(0)
+    o = rng.normal(size=(8, 3))
+    o = torch.from_numpy((o / np.linalg.norm(o, axis=1, keepdims=True)
+                          * 1.2).astype(np.float32))
+    d = torch.nn.functional.normalize(-o, dim=1)
+    noise = torch.rand(8, generator=torch.Generator().manual_seed(0))
     for shared in (True, False):
         tcfg = MNGPConfig(**CFG_KW, shared_encoder=shared)
-        for union in (True, False):
-            rcfg = RenderConfig(layout="dense", union_sampling=union)
-            with pytest.raises(NotImplementedError, match="dense"):
-                ml_render_train({}, {}, tcfg, {}, o, d, d, rcfg)
+        p = tp if shared else {**tp, "hash_table": tp["hash_table"][None]
+                               .expand(2, -1, -1, -1)}
+        with torch.no_grad():
+            outs = [ml_render_train(p, ts, tcfg, tg, o, d, d, RenderConfig(
+                layout="dense", samples_per_ray=16, union_sampling=union),
+                noise=noise) for union in (True, False)]
+        assert outs[0]["ws"].shape == (2, 8, 16) and "ray_id" not in outs[0]
+        for k in ("rgb", "ws", "ts", "valid", "rm_samples"):
+            assert torch.equal(outs[0][k], outs[1][k]), k
 
 
 def test_tree_paths_name_the_leaves_in_jax_order():

@@ -231,8 +231,15 @@ def test_render_train_forward_fn_ray_id_and_extras():
     assert torch.equal(seen["ray_id"], out["ray_id"])
     assert out["gate_results"].shape == (out["ts"].shape[0], 1)
     assert torch.equal(out["rgb"], ref["rgb"]) and "gate_results" not in ref
-    with pytest.raises(NotImplementedError, match="dense"):
-        render_train(tp, ts, tcfg, o, d, RenderConfig(layout="dense"))
+    # the dense layout, once refused: the closure sees every slot without
+    # ray_id (test_torch_dense holds the render against JAX)
+    with torch.no_grad():
+        dense = render_train(None, ts, tcfg, o, d, RenderConfig(
+            layout="dense", samples_per_ray=32),
+            forward_fn=lambda x, dd, ray_id=None: fwd(x, dd, ray_id),
+            noise=noise, forward_takes_ray_id=True)
+    assert seen["ray_id"] is None and dense["ws"].shape == (32, 32)
+    assert dense["gate_results"].shape == (32 * 32, 1)
 
 
 def test_render_test_matches_jax():
@@ -252,9 +259,13 @@ def test_render_test_matches_jax():
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
                                    rtol=0, atol=atol, err_msg=k)
     assert (got["opacity"].numpy() > 0.05).mean() > 0.3
-    with pytest.raises(NotImplementedError, match="dense"):
-        render_test(tp, ts, tcfg, _t(o), _t(d),
-                    RenderConfig(test_layout="dense"))
+    # the dense test layout, once refused: the same rays in (N, 128)
+    # blocks (test_torch_dense holds it against JAX)
+    dense = render_test(tp, ts, tcfg, _t(o), _t(d),
+                        RenderConfig(test_layout="dense"))
+    assert int(dense["total_samples"]) > 0 and dense["iterations"] >= 1
+    np.testing.assert_allclose(dense["opacity"].numpy(),
+                               got["opacity"].numpy(), rtol=0, atol=1e-3)
 
 
 def _jax_draws(key, grid, cfg, warmup):
