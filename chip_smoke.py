@@ -3,8 +3,9 @@
 examples' microbenchmark kernels, its train_ml.py entry point on a scene
 on disk, every dataset loader of the launch scripts, train.py's single
 NGP field, the per-expert and unshared MoE renders, train_other.py's
-Switch-, Block- and Mega-NeRF baselines, and the dense sample layout, on
-one NVIDIA GPU.
+Switch-, Block- and Mega-NeRF baselines, the dense sample layout, and
+data parallelism over ranks, on one NVIDIA GPU (two ranks share it; a
+second card adds the NCCL entry point).
 
     python3 chip_smoke.py
 
@@ -160,9 +161,10 @@ CPU fallback):
      steps (test PSNR up by more than 3 dB, checkpoints without a gate
      recording brick3), one more epoch with --resume auto from step
      2 x ENTRY_STEPS; launch counts reset before and read after
-     (brick3_table_grad exactly 4 per step; kernels 1 and 2 launched);
+     (brick3_table_grad exactly once per step: a baseline's step is one
+     8192-ray pass, as the reference's; kernels 1 and 2 launched);
      then card vs CPU: a CHUNK-ray test chunk of test view 0 from the
-     resumed system (CPU_TOL) and one step-0 microbatch of 2048 rays of
+     resumed system (CPU_TOL) and one step-0 step of 2048 rays of
      a fresh model on phase 5's ray store (TRAIN_CPU_LOSS_RTOL,
      TRAIN_CPU_GRAD_RTOL), its gate noise drawn on the CPU for both
      sides; the CPU side routes the point gate as the card did
@@ -171,9 +173,9 @@ CPU fallback):
      (b) block with block_TAT.sh's options (--downsample cut to 0.1) the
      same way, its anchors printed, validated untrained, after training
      and after the resumed epoch; (c) mega for DS_SHORT_STEPS steps and
-     one validation (finite losses, brick3_table_grad 4 per step).
-     Printed: each part's seconds, the median train rays/s and the
-     nvidia-smi line;
+     one validation (finite losses, brick3_table_grad once per step).
+     Printed: each part's seconds, the median train rays/s, the phase's
+     peak device memory and the nvidia-smi line;
  13. the dense layout (--layout dense, samples_per_ray 192) at full
      width: (a) kernels 1-3 against their plain versions at a dense
      step-0 microbatch of a fresh MoE trainer (kernel 2 on each expert's
@@ -189,14 +191,40 @@ CPU fallback):
      read after: `launches_by_path.dense`), its median train rays/s and
      peak memory; (c) phase 4's field (expert 0 alone) on the dense test
      layout: render_test and render_test_compacted over the 400x400 image
-     (rays/s) and one CHUNK-ray chunk of each card vs CPU (CPU_TOL); (d)
+     (rays/s, median and spread of RENDER_REPEATS renders) and one
+     CHUNK-ray chunk of each card vs CPU (CPU_TOL); (d)
      DS_SHORT_STEPS steps each of switch and block through
      train_other.main --layout dense with one validation (finite losses,
      `launches_by_path.dense_baselines`). Printed: the phase's seconds
      and the nvidia-smi line;
- 14. a JSON line with every kernel's check, launches (per phase), times
+ 14. data parallelism (parallel/): (a) two spawned ranks sharing the card
+     in a gloo group (nccl refuses two ranks on one device), each
+     building phase 5's trainer on the 2-rank mesh (batch 8192: 4096
+     rays and 2 slices of 2048 a rank) on phase 5's ray store: the grid
+     after the warmup update, one step whose loss and every gradient leaf
+     are held against the 1-rank step on the card from the same state
+     and global batch (the same four slices; PAR_LOSS_RTOL, each leaf
+     PAR_GRAD_RTOL of its largest entry, the ray gate's output layer of
+     its term sum), both ranks' gradients equal, kernels 1-3 launched
+     exactly twice a rank; a planted fault (rank 1's step with the
+     all-reduce skipped) must fail that check; then PAR_FIT_STEPS steps
+     with warmup below PAR_WARMUP_STEPS (exact launch counts a rank,
+     `launches_by_path.parallel` the two ranks' sum, PSNR rising, the
+     pair's rays/s on the shared card), after each grid update the cells
+     in which rank 1's grid differs from rank 0's before any broadcast
+     (none after a warmup update, which is not broadcast), and the
+     digests of every parameter, Adam state tensor and grid tensor
+     gathered from both ranks, which must be equal; (b) with two
+     or more cards, train_ml.main --num_devices 2 (nccl, one rank a card)
+     for one epoch on phase 9's scene with phase 9's cuts (one checkpoint
+     and one slim export, test PSNR up by more than 3 dB, rank 0's
+     rays/s); with one card a line says that this did not run; (c)
+     scaling_bench (the rank counts the cards allow) and bench_dedup at
+     their defaults, their lines printed. Printed: the phase's seconds and
+     the nvidia-smi line;
+ 15. a JSON line with every kernel's check, launches (per phase), times
      and bound;
- 15. the last line: {"ok": true, "device": {...}}.
+ 16. the last line: {"ok": true, "device": {...}}.
 
 Phase 4 also renders 256 rays with hash_impl 'dedup' on the card and on
 the CPU (no brick3 table is packed for it, and no brick3 kernel runs).
@@ -206,7 +234,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
+import hashlib
 import json
+import multiprocessing
 import os
 import struct
 import subprocess
@@ -216,6 +247,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import radnerf_tpu_torch.models.gates as gates_mod
 import radnerf_tpu_torch.render.ml_render as ml_render_mod
@@ -226,9 +258,10 @@ from radnerf_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, write_jpeg
 from radnerf_tpu_torch.data.png import write_png
 from radnerf_tpu_torch.data.ray_utils import get_ray_directions
 from radnerf_tpu_torch.examples import bench_vmem_gather as tvg
-from radnerf_tpu_torch.examples import profile_step
+from radnerf_tpu_torch.examples import (
+    bench_dedup, profile_step, scaling_bench, smoke_e2e,
+)
 from radnerf_tpu_torch.examples import proto_pallas_gather as tpg
-from radnerf_tpu_torch.examples import smoke_e2e
 from radnerf_tpu_torch.models.block import BlockNGPConfig, init_block_ngp
 from radnerf_tpu_torch.models.gates import init_ray_gate
 from radnerf_tpu_torch.models.mlp import layer_tap, slice_stacked
@@ -270,6 +303,7 @@ from radnerf_tpu_torch.ops.marching import (
 from radnerf_tpu_torch.ops.stream_table_grad import (
     stream_table_grad, stream_table_grad_plain, stream_terms,
 )
+from radnerf_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
 from radnerf_tpu_torch.parallel.step import (
     microbatched_value_and_grad, tree_leaves, tree_paths, tree_unflatten,
 )
@@ -417,6 +451,32 @@ BASELINE_ARGS = {
 DENSE_EPOCHS, DENSE_STEPS = 2, 64
 DENSE_FIT_STEPS = 32             # the trainer's steps before its CPU step
 DENSE_ARGS = ("--layout", "dense", "--steps_per_epoch", str(DENSE_STEPS))
+# phase 14, data parallelism: two gloo ranks sharing the card train phase
+# 5's trainer (global batch 8192: 4096 rays and 2 slices of 2048 a rank)
+# on its ray store; one step held against the 1-rank step (4 slices of
+# 2048, the same slices) from the same state and batch, then
+# PAR_FIT_STEPS steps; each rank process joined within PAR_TIMEOUT s.
+# 64 steps, not 32: the warmup grid update at step 16 drops the occupied
+# share (0.49 -> 0.35) and the training PSNR with it, so that 32 steps
+# left the last 16 steps' mean below the first 16's (12.46 against
+# 12.91 dB on an NVIDIA H100 80GB HBM3, 700 W).
+# The two sides run the same forward on the same four slices on the same
+# card; they differ in summation order alone. The step's loss: four f32
+# slice losses summed in another grouping (3 2^-24 of their sum):
+# PAR_LOSS_RTOL. Each gradient leaf: the four slice terms regrouped (3
+# roundings, 2^-24 each, of the term sum) and the f32 atomic order inside
+# each slice's backward (kernel 3, the card's index_add_), a few f32 ulps
+# (2^-23 = 1.2e-7) of the leaf's scale: its largest entry, and for the ray
+# gate's output layer its largest term sum, |x|^T |dL/dlogits| over the
+# four slices, averaged (GateTermTap), whose entries cancel under the
+# softmax. PAR_GRAD_RTOL is 1e-5 of that scale, 84 f32 ulps.
+PAR_RANKS, PAR_FIT_STEPS, PAR_TIMEOUT = 2, 64, 600
+PAR_BATCH_SEED = 11
+PAR_LOSS_RTOL = PAR_GRAD_RTOL = 1e-5
+# the pair's fit: warmup grid updates (every cell, not broadcast) at its
+# steps 0 and 16, updates outside warmup (drawn cells, then rank 0's grids
+# broadcast) at 32, 48 and 64
+PAR_WARMUP_STEPS = 32
 FAMILY_KERNELS = {"brick3": "brick3_table_grad",
                   "dedup": "tcnn_table_grad", "slab": "slab_table_grad",
                   "brick": "brick_table_grad", "pallas": "tcnn_table_grad"}
@@ -1253,7 +1313,7 @@ def microbatch_rays(trainer) -> tuple:
     batch) and its rays' origins, directions, near and far."""
     dev = trainer.data["directions"].device
     gen = torch.Generator(device=dev).manual_seed(7)
-    mb = trainer.tcfg.batch_size // trainer.tcfg.n_microbatch
+    mb = trainer.tcfg.batch_size // trainer.n_microbatch
     batch = tt.sample_batch(gen, trainer.data, mb)
     poses = trainer.data["poses"][batch["img_idxs"]]
     rays_o, rays_d = get_rays(trainer.data["directions"][batch["pix_idxs"]],
@@ -1376,16 +1436,22 @@ def ray_store(cfg: MNGPConfig, dev) -> dict:
     return store
 
 
-def new_trainer(cfg: MNGPConfig, store: dict, dev, layout: str = "flat"):
-    """A trainer at TrainConfig's defaults (on `layout`) from seeds 1
-    (weights) and 2 (draws), with empty grids."""
+def new_trainer(cfg: MNGPConfig, store: dict, dev, layout: str = "flat",
+                mesh=None):
+    """A trainer at TrainConfig's defaults (on `layout`, one rank of
+    `mesh` if given) from seeds 1 (weights) and 2 (draws), with empty
+    grids."""
+    ranks = mesh.size if mesh is not None else 1
     tcfg = tt.TrainConfig(layout=layout)
     gen = torch.Generator().manual_seed(1)
     trainer = tt.Trainer(cfg, tcfg, init_mngp(gen, cfg, device=dev),
                          init_ray_gate(gen, cfg.n_experts, device=dev),
                          init_mngp_state(cfg, device=dev), store,
-                         torch.Generator(device=dev).manual_seed(2))
-    check(tcfg.n_microbatch == 4, "batch 8192 must take 4 microbatches")
+                         torch.Generator(device=dev).manual_seed(2),
+                         mesh=mesh)
+    check(trainer.n_microbatch == 4 // ranks,
+          f"batch 8192 on {ranks} rank(s) must take {4 // ranks} "
+          "microbatches a rank")
     return trainer
 
 
@@ -1473,7 +1539,7 @@ def train_phase(cfg: MNGPConfig, store: dict, dev) -> tuple:
     launches, summary = fit(trainer, TRAIN_STEPS, "train")
     check(summary["psnr_last"] > summary["psnr_first"] + 3.0,
           f"psnr did not rise: {summary}")
-    mb = trainer.tcfg.n_microbatch
+    mb = trainer.n_microbatch
     check_launches(launches, cfg, TRAIN_STEPS, mb, "brick3 training")
 
     for name, rec in microbatch_checks(
@@ -1503,7 +1569,7 @@ def family_phase(cfg: MNGPConfig, store: dict, dev, n_steps: int,
     t0 = time.perf_counter()
     trainer = new_trainer(cfg, store, dev)
     launches, summary = fit(trainer, n_steps, label)
-    mb = trainer.tcfg.n_microbatch
+    mb = trainer.n_microbatch
     check_launches(launches, cfg, n_steps, mb, label)
     if profile:
         summary["profile"] = profile_call(
@@ -2064,7 +2130,7 @@ def entry_runs(root: str, dev) -> dict:
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
 
-    mb = tt.TrainConfig(batch_size=h.batch_size).n_microbatch
+    mb = tt.n_microbatch(tt.TrainConfig(batch_size=h.batch_size))
     want = mb * n2
     check(launches["brick3_table_grad"] == want,
           f"brick3_table_grad launched {launches['brick3_table_grad']} "
@@ -2153,7 +2219,7 @@ def single_runs(root: str, dev) -> dict:
     check(abs(got["psnr"] - psnr2) <= 1e-3, "single oracle psnr")
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
-    mb = tt.TrainConfig().n_microbatch
+    mb = tt.n_microbatch(tt.TrainConfig())
     check(launches["brick3_table_grad"] == mb * n2,
           f"brick3_table_grad launched {launches['brick3_table_grad']} "
           f"times, expected {mb * n2} ({mb} microbatches x {n2} steps)")
@@ -2205,12 +2271,12 @@ def single_vs_cpu(system, store: dict, dev) -> dict:
     trainer.update_grid(warmup=True)        # the state a first step sees
     tcfg = trainer.tcfg
     step = train_vs_cpu(trainer, label="single",
-                        rays=tcfg.batch_size // tcfg.n_microbatch)
+                        rays=tcfg.batch_size // trainer.n_microbatch)
     profile = profile_call(
         lambda: trainer.train_step(tt.sample_batch(
             trainer.gen, trainer.data, tcfg.batch_size)),
         f"one single-field training step ({tcfg.batch_size} rays, "
-        f"{tcfg.n_microbatch} microbatches, budget "
+        f"{trainer.n_microbatch} microbatches, budget "
         f"{trainer.rcfg.budget_per_ray})")
     return {"render": diffs, "step": step, "profile": profile}
 
@@ -2234,7 +2300,7 @@ def expert_runs(cfg: MNGPConfig, store: dict, dev) -> tuple:
         launches[label], summary = fit(trainer, EXPERT_STEPS, label)
         check(summary["psnr_last"] > summary["psnr_first"] + 3.0,
               f"{label} psnr did not rise: {summary}")
-        mb = trainer.tcfg.n_microbatch
+        mb = trainer.n_microbatch
         K, C = cfg_k.n_experts, cfg_k.cascades
         n_updates = -(-EXPERT_STEPS // tt.UPDATE_INTERVAL)
         want = {name: 0 for name in launches[label]}
@@ -2411,11 +2477,11 @@ def baseline_runs(kind: str, root: str, dev) -> dict:
              if m["tag"] == "test/psnr" and m["step"] == n2][-1]
     print(f"[{kind}] resumed at step {n1}, epoch {ENTRY_EPOCHS} validated "
           f"at {psnr2:.3f} dB")
-    mb = tt.TrainConfig().n_microbatch
+    mb = 1                     # the baselines take one pass a step
     check(launches["brick3_table_grad"] == mb * n2,
           f"{kind}: brick3_table_grad launched "
-          f"{launches['brick3_table_grad']} times, expected {mb * n2} ({mb} "
-          f"microbatches x {n2} steps)")
+          f"{launches['brick3_table_grad']} times, expected {mb * n2} (one "
+          f"pass x {n2} steps)")
     for name in ("brick3_encode_fwd", "occ_lookup"):
         check(launches[name] > mb * n2, f"{kind}: {name} launched "
                                         f"{launches[name]}")
@@ -2450,8 +2516,7 @@ def mega_run(root: str, dev) -> tuple:
     check(len(losses) == DS_SHORT_STEPS and all(np.isfinite(losses))
           and len(psnr) == 1 and np.isfinite(psnr[0]),
           "mega: non-finite losses or no validation")
-    mb = tt.TrainConfig().n_microbatch
-    check(launches["brick3_table_grad"] == mb * DS_SHORT_STEPS,
+    check(launches["brick3_table_grad"] == DS_SHORT_STEPS,
           f"mega: brick3_table_grad launched {launches}")
     return launches, {"steps": DS_SHORT_STEPS, "loss_first": losses[0],
                       "loss_last": losses[-1], "psnr": psnr[0]}
@@ -2472,7 +2537,7 @@ def baseline_trainer(kind: str, store: dict, dev):
         anchors = torch.from_numpy(kmeans_cameras(
             store["poses"][:, :, 3].cpu().numpy().copy(), 2)).to(dev)
     trainer = tt.Trainer(
-        cfg, tt.TrainConfig(cv_loss_w=1e-4), params, None,
+        cfg, tt.TrainConfig(cv_loss_w=1e-4, microbatch=1), params, None,
         init_ngp_state(cfg, device=dev), store,
         torch.Generator(device=dev).manual_seed(2),
         loss=other_loss_fn(kind, anchors, 0.25),
@@ -2484,7 +2549,7 @@ def baseline_trainer(kind: str, store: dict, dev):
 def baseline_vs_cpu(kind: str, system, store: dict, dev) -> dict:
     """Phase 12d: the baseline on the card against the CPU: a CHUNK-ray
     test chunk of test view 0 from the resumed system (CPU_TOL), and one
-    step-0 microbatch of 2048 rays of a fresh model (TRAIN_CPU_LOSS_RTOL,
+    step-0 step of 2048 rays of a fresh model (TRAIN_CPU_LOSS_RTOL,
     TRAIN_CPU_GRAD_RTOL), its gate noise drawn on the CPU for both sides;
     the switch's CPU side routed as the card's (RouteTap: its flips
     counted, each a near tie, at most 0.1% of the slots); one step
@@ -2521,7 +2586,7 @@ def baseline_vs_cpu(kind: str, system, store: dict, dev) -> dict:
 
     trainer = baseline_trainer(kind, store, dev)
     tcfg = trainer.tcfg
-    rays = tcfg.batch_size // tcfg.n_microbatch
+    rays = tt.MICROBATCH_RAYS        # a 2048-ray step on both sides
     extra, tap = None, None
     if kind == "switch":
         tap = RouteTap()
@@ -2539,7 +2604,7 @@ def baseline_vs_cpu(kind: str, system, store: dict, dev) -> dict:
         lambda: trainer.train_step(tt.sample_batch(
             trainer.gen, trainer.data, tcfg.batch_size)),
         f"one {kind} training step ({tcfg.batch_size} rays, "
-        f"{tcfg.n_microbatch} microbatches, budget "
+        f"{trainer.n_microbatch} microbatches, budget "
         f"{trainer.rcfg.budget_per_ray})")
     return {"render": diffs, "render_route": route, "step": step,
             "profile": profile}
@@ -2550,6 +2615,8 @@ def baseline_phase(cfg: MNGPConfig, store: dict, dev, smi: str) -> tuple:
     counts}, summary)."""
     t_phase = time.perf_counter()
     launches, summary = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
         root = write_tanks_scene(tmp, cfg, dev)
         cwd = os.getcwd()
@@ -2574,10 +2641,13 @@ def baseline_phase(cfg: MNGPConfig, store: dict, dev, smi: str) -> tuple:
         finally:
             os.chdir(cwd)
     summary["seconds"] = time.perf_counter() - t_phase
+    summary["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     print(f"[baselines] phase 12 in {summary['seconds']:.1f} s (switch "
           f"{summary['switch']['seconds']:.1f} s, block "
           f"{summary['block']['seconds']:.1f} s, mega "
-          f"{summary['mega']['seconds']:.1f} s); {smi}")
+          f"{summary['mega']['seconds']:.1f} s); peak device memory "
+          f"{summary['peak_mib']:.0f} MiB (one 8192-ray pass a step); "
+          f"{smi}")
     return launches, summary
 
 
@@ -2996,7 +3066,7 @@ def datasets_phase(dev, smi: str) -> tuple:
             os.chdir(cwd)
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
-    want = tt.TrainConfig(batch_size=8192).n_microbatch * steps
+    want = tt.n_microbatch(tt.TrainConfig(batch_size=8192)) * steps
     check(launches["brick3_table_grad"] == want,
           f"brick3_table_grad launched {launches['brick3_table_grad']} "
           f"times, expected {want} (4 microbatches x {steps} steps)")
@@ -3101,7 +3171,7 @@ def dense_entry(root: str, dev) -> dict:
         psnr1 = [json.loads(line)["value"] for line in f
                  if '"test/psnr"' in line][-1]
     n = DENSE_EPOCHS * DENSE_STEPS
-    mb = tt.TrainConfig(batch_size=h.batch_size).n_microbatch
+    mb = tt.n_microbatch(tt.TrainConfig(batch_size=h.batch_size))
     check(len(secs) == n, f"{len(secs)} dense steps")
     check(psnr1 > psnr0 + 3.0, f"dense test psnr {psnr0} -> {psnr1}")
     check(launches["brick3_table_grad"] == mb * n,
@@ -3125,7 +3195,8 @@ def dense_entry(root: str, dev) -> dict:
 def dense_renders(scene: dict) -> dict:
     """Phase 4's field (expert 0 as a single field, on its own grid) on
     the dense test layout: render_test and render_test_compacted over the
-    400x400 image (rays/s, once each after a warm-up chunk), and one
+    400x400 image (rays/s: the median of RENDER_REPEATS renders after a
+    warm-up chunk, with the spread), and one
     CHUNK-ray chunk of each on the card and on the CPU (CPU_TOL, the same
     samples)."""
     cfg, rcfg, params, state, directions, pose = (
@@ -3153,12 +3224,16 @@ def dense_renders(scene: dict) -> dict:
     for name, render in card.items():
         render_rays_chunked(params, state, cfg, None, directions[:CHUNK],
                             pose, rcfg_d, chunk=CHUNK, render=render)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = render_rays_chunked(params, state, cfg, None, directions,
-                                  pose, rcfg_d, chunk=CHUNK, render=render)
-        torch.cuda.synchronize()
-        rate = n_pix / (time.perf_counter() - t0)
+        rates = []
+        for _ in range(RENDER_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = render_rays_chunked(params, state, cfg, None, directions,
+                                      pose, rcfg_d, chunk=CHUNK,
+                                      render=render)
+            torch.cuda.synchronize()
+            rates.append(n_pix / (time.perf_counter() - t0))
+        rate = float(np.median(rates))
         check(bool(torch.isfinite(img["rgb"]).all())
               and float((img["opacity"] > 0.01).float().mean()) > 0,
               f"dense {name}: empty or non-finite image")
@@ -3171,7 +3246,9 @@ def dense_renders(scene: dict) -> dict:
         diffs = {k: float((gpu[k].cpu() - ref[k]).abs().max())
                  for k in CPU_TOL}
         print(f"[dense] {name} on the dense test layout: {SIDE}x{SIDE} "
-              f"image {rate:.0f} rays/s ({img['iterations']} loop "
+              f"image median {rate:.0f} rays/s over {len(rates)} renders "
+              f"({', '.join(f'{r:.0f}' for r in rates)}; "
+              f"{img['iterations']} loop "
               f"iterations, {img['total_samples']} samples); card vs CPU "
               f"on {CHUNK} rays max|diff| {diffs} (tolerance {CPU_TOL}); "
               f"samples {gpu['total_samples']} vs {ref['total_samples']}")
@@ -3180,7 +3257,8 @@ def dense_renders(scene: dict) -> dict:
                                    f"{diffs[k]} > {tol}")
         check(gpu["total_samples"] == ref["total_samples"],
               f"dense {name}: card and CPU marched different samples")
-        out[name] = {"rays_per_s": rate, "vs_cpu": diffs,
+        out[name] = {"rays_per_s": rate, "rays_per_s_min": min(rates),
+                     "rays_per_s_max": max(rates), "vs_cpu": diffs,
                      "iterations": img["iterations"]}
     return out
 
@@ -3240,7 +3318,7 @@ def dense_phase(scene: dict, store: dict, dev, smi: str) -> tuple:
         lambda: trainer.train_step(tt.sample_batch(
             trainer.gen, trainer.data, trainer.tcfg.batch_size)),
         f"one dense training step ({trainer.tcfg.batch_size} rays, "
-        f"{trainer.tcfg.n_microbatch} microbatches, samples_per_ray "
+        f"{trainer.n_microbatch} microbatches, samples_per_ray "
         f"{trainer.rcfg.samples_per_ray})")
     summary = {"trainer": {**summary_t, "peak_memory_gib": peak / 2**30,
                            "profile": profile},
@@ -3265,6 +3343,342 @@ def dense_phase(scene: dict, store: dict, dev, smi: str) -> tuple:
     print(f"[dense] phase 13 in {summary['seconds']:.1f} s; launches "
           f"{launches}; {smi}")
     return checks, launches, summary
+
+
+# ---------------------------------------------------------------- phase 14
+class GateTermTap:
+    """layer_tap: the largest term sums of the ray gate's output-layer
+    leaves over a step's slices, averaged as the step averages them:
+    |x|^T |dL/dlogits| (the weight) and sum |dL/dlogits| (the bias), x
+    the layer's input (see TRAIN_CPU_GRAD_RTOL)."""
+
+    def __init__(self, bundle: dict, n_slices: int):
+        self.gate = bundle["gate"]["encoder"]
+        self.n = n_slices
+        self.w = self.b = 0.0
+        self.at = None             # the output layer's index
+
+    def mlp_input(self, params, x):
+        return x
+
+    def layer(self, params, i, x, mm, out):
+        if (params is self.gate and i == len(params["w"]) - 1
+                and out.requires_grad):
+            self.at = i
+            xa = x.detach().float().abs()
+
+            def hook(g):
+                t = g.detach().float().abs()
+                self.w = self.w + xa.T @ t / self.n
+                self.b = self.b + t.sum(0) / self.n
+
+            out.register_hook(hook)
+        return out
+
+    def scale(self) -> dict:
+        return {f"gate/encoder/w/{self.at}": float(self.w.max()),
+                f"gate/encoder/b/{self.at}": float(self.b.max())}
+
+
+def par_batch(trainer, mesh=None) -> dict:
+    """The phase's global batch (seed PAR_BATCH_SEED), or this rank's
+    block of it."""
+    gen = torch.Generator(device=trainer.data["directions"].device)
+    return tt.sample_batch(gen.manual_seed(PAR_BATCH_SEED), trainer.data,
+                           trainer.tcfg.batch_size, mesh)
+
+
+def tensor_digest(t: torch.Tensor) -> str:
+    return hashlib.sha1(t.detach().contiguous().reshape(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def replica_digests(trainer) -> dict:
+    """A digest of every parameter, Adam state tensor and grid tensor,
+    and of the generator's state."""
+    out = {}
+    opt = trainer.optimizer.state
+    for path, p in zip(tree_paths(trainer.bundle),
+                       tree_leaves(trainer.bundle)):
+        out[f"param {path}"] = tensor_digest(p)
+        for k, v in sorted(opt[p].items()):
+            out[f"adam {k} {path}"] = tensor_digest(v)
+    for path, v in zip(tree_paths(trainer.model_state),
+                       tree_leaves(trainer.model_state)):
+        out[f"grid {path}"] = tensor_digest(v)
+    out["generator"] = tensor_digest(trainer.gen.get_state())
+    return out
+
+
+def count_grid_differences(trainer, log: list) -> None:
+    """Wrap the trainer's grid update: after each update, before any
+    broadcast of rank 0's grids, append (step, warmup, the density-grid
+    cells whose bits differ from rank 0's) to `log`."""
+    inner = trainer._update_grid
+
+    def update(params, state, cfg, gen, threshold, warmup):
+        new = inner(params, state, cfg, gen, threshold, warmup)
+        mine = new["density_grid"].detach().cpu().contiguous()
+        main = mine.clone()
+        dist.broadcast(main, 0)
+        log.append((trainer.global_step, bool(warmup), int(
+            (mine.view(torch.int32) != main.view(torch.int32)).sum())))
+        return new
+
+    trainer._update_grid = update
+
+
+def parallel_rank(rank: int, tmp: str, cfg: MNGPConfig,
+                  device="cuda") -> None:
+    """Phase 14a, one of PAR_RANKS ranks on cuda:0 (a spawned process):
+    join the phase's gloo group, build phase 5's trainer on the mesh, its
+    grid after the warmup update; this rank's step with the all-reduce
+    skipped (the planted fault), then the real step (its launches); then
+    PAR_FIT_STEPS steps (fit) with warmup below PAR_WARMUP_STEPS, each
+    grid update's cells that differ from rank 0's before any broadcast,
+    and the digests of the replica gathered from every rank. Writes
+    rank<r>.pt under tmp."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    initialize_multihost(f"file://{os.path.join(tmp, 'store')}", PAR_RANKS,
+                         rank, local_rank=0, device=device, backend="gloo",
+                         timeout=datetime.timedelta(seconds=PAR_TIMEOUT))
+    try:
+        mesh = make_mesh(PAR_RANKS, device)
+        dev = mesh.device
+        store = torch.load(os.path.join(tmp, "store.pt"), map_location=dev)
+        trainer = new_trainer(cfg, store, dev, mesh=mesh)
+        trainer.tcfg = dataclasses.replace(trainer.tcfg,
+                                           warmup_steps=PAR_WARMUP_STEPS)
+        grid_diffs = []
+        count_grid_differences(trainer, grid_diffs)
+        trainer.update_grid(warmup=True)
+        batch = par_batch(trainer, mesh)
+        tr = trainer
+        (_, _), local = microbatched_value_and_grad(
+            lambda p, b: tr.loss_fn(p, tr.model_state, b, tr.data, tr.cfg,
+                                    tr.rcfg, tr.tcfg, tr.gen),
+            tr.n_microbatch)(tr.bundle, batch)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        loss, aux = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_launches = dict(kernels.launch_counts)
+        out = {"loss": float(loss),
+               "aux": {k: float(v) for k, v in aux.items()},
+               "grads": [p.grad.detach().cpu()
+                         for p in tree_leaves(trainer.bundle)],
+               "local": [g.detach().cpu() for g in tree_leaves(local)],
+               "step_launches": step_launches}
+        out["launches"], out["fit"] = fit(trainer, PAR_FIT_STEPS,
+                                          f"parallel rank {rank}")
+        out["grid_diffs"] = grid_diffs
+        digests = [None] * mesh.size
+        dist.all_gather_object(digests, replica_digests(trainer))
+        out["digests"] = digests
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_reference(cfg: MNGPConfig, store: dict, dev) -> dict:
+    """Phase 14a's reference: the 1-rank step on the card from the same
+    state and global batch (4 slices of 2048), its gradient leaves and
+    the gate's output-layer term sums."""
+    trainer = new_trainer(cfg, store, dev)
+    trainer.update_grid(warmup=True)
+    batch = par_batch(trainer)
+    tap = GateTermTap(trainer.bundle, trainer.n_microbatch)
+    with layer_tap(tap):
+        loss, aux = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "aux": {k: float(v) for k, v in aux.items()},
+            "grads": [p.grad.detach().cpu()
+                      for p in tree_leaves(trainer.bundle)],
+            "paths": tree_paths(trainer.bundle), "scale": tap.scale()}
+
+
+def pair_runs(cfg: MNGPConfig, store: dict) -> list:
+    """Phase 14a's two ranks, spawned and joined within PAR_TIMEOUT s;
+    their rank<r>.pt records."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        torch.save({k: v.cpu() for k, v in store.items()},
+                   os.path.join(tmp, "store.pt"))
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=parallel_rank, args=(r, tmp, cfg),
+                             name=f"rank{r}") for r in range(PAR_RANKS)]
+        for p in procs:
+            p.start()
+        t_end = time.perf_counter() + PAR_TIMEOUT
+        for p in procs:
+            p.join(max(t_end - time.perf_counter(), 1.0))
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        check(all(p.exitcode == 0 for p in procs),
+              f"parallel ranks' exit codes {[p.exitcode for p in procs]}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(PAR_RANKS)]
+
+
+def pair_phase(cfg: MNGPConfig, store: dict, dev) -> tuple:
+    """Phase 14a (see the module docstring). Returns (the ranks' summed
+    launch counts of their PAR_FIT_STEPS steps, summary)."""
+    ref = parallel_reference(cfg, store, dev)
+    torch.cuda.empty_cache()
+    ranks = pair_runs(cfg, store)
+    paths, scale = ref["paths"], ref["scale"]
+    tol = PAR_GRAD_RTOL
+    summary = {"backend": "gloo", "ranks_per_card": PAR_RANKS,
+               "ref_loss": ref["loss"], "rank_loss": [], "worst": []}
+    for r, rec in enumerate(ranks):
+        leaves = leaf_report(paths, rec["grads"], ref["grads"], scale)
+        top = max(leaves, key=lambda x: x["ratio"])
+        summary["rank_loss"].append(rec["loss"])
+        summary["worst"].append([top["ratio"], top["leaf"]])
+        print(f"[parallel] rank {r} step vs the 1-rank step: loss "
+              f"{rec['loss']:.7f} vs {ref['loss']:.7f}, samples "
+              f"{rec['aux']['rm_samples']:.1f} vs "
+              f"{ref['aux']['rm_samples']:.1f}, worst gradient leaf "
+              f"{top['leaf']} at {top['ratio']:.3g} of its scale (tolerance "
+              f"loss {PAR_LOSS_RTOL} relative, leaves {tol}; the gate's "
+              f"output layer at its term sum {scale})")
+        for x in leaves:
+            print(f"[parallel]   leaf {x['leaf']}: {x['ratio']:.3g}")
+        check(abs(rec["loss"] - ref["loss"]) <= PAR_LOSS_RTOL
+              * abs(ref["loss"]), f"parallel rank {r}: loss")
+        check(rec["aux"]["rm_samples"] == ref["aux"]["rm_samples"],
+              f"parallel rank {r}: samples")
+        check(top["ratio"] <= tol, f"parallel rank {r}: gradient leaves")
+        want = {name: 0 for name in rec["step_launches"]}
+        for name in ("occ_lookup", "brick3_encode_fwd", "brick3_table_grad"):
+            want[name] = 2                 # once per slice, two a rank
+        check(rec["step_launches"] == want,
+              f"parallel rank {r}: step launches {rec['step_launches']}")
+        check_launches(rec["launches"], cfg, PAR_FIT_STEPS, 2,
+                       f"parallel rank {r}")
+    check(all(torch.equal(a, b) for a, b in zip(ranks[0]["grads"],
+                                                ranks[1]["grads"])),
+          "the ranks applied different gradients")
+    fault = max(x["ratio"] for x in leaf_report(
+        paths, ranks[1]["local"], ref["grads"], scale))
+    summary["planted_fault"] = fault
+    print(f"[parallel] planted fault, rank 1's step with the all-reduce "
+          f"skipped: worst leaf at {fault:.3g} of its scale (must exceed "
+          f"{tol})")
+    check(fault > tol, "the check passes a rank that skips the all-reduce")
+    diffs = ranks[1]["grid_diffs"]
+    summary["grid_diffs"] = diffs
+    print(f"[parallel] rank 1's density-grid cells that differ from rank "
+          f"0's after each update, before any broadcast (step, warmup, "
+          f"cells): {diffs}")
+    check([d[:2] for d in diffs] == [(0, True), (16, True), (32, False),
+                                     (48, False), (64, False)],
+          f"parallel grid updates {diffs}")
+    check(all(n == 0 for _, warmup, n in diffs if warmup),
+          "the ranks' warmup grid updates differ (they are not broadcast)")
+    digests = [rec["digests"] for rec in ranks]
+    same = all(d == digests[0][0] for per in digests for d in per)
+    n = len(digests[0][0])
+    print(f"[parallel] after {PAR_FIT_STEPS} more steps: {n} digests of "
+          f"parameters, Adam state and grids gathered from both ranks: "
+          f"{'bit-equal' if same else 'DIFFERENT'}")
+    check(same, "the replicas drifted apart")
+    fit0 = ranks[0]["fit"]
+    summary.update(fit=fit0, digests=n)
+    print(f"[parallel] two ranks sharing one card (gloo): "
+          f"{fit0['rays_per_s']:.0f} rays/s of the 8192-ray global batch "
+          f"(median over steps 16-{PAR_FIT_STEPS - 1}; not a scaling "
+          f"figure); psnr {fit0['psnr_first']:.2f} -> "
+          f"{fit0['psnr_last']:.2f} dB")
+    check(fit0["psnr_last"] > fit0["psnr_first"],
+          f"parallel psnr did not rise: {fit0}")
+    launches = {k: sum(rec["launches"][k] for rec in ranks)
+                for k in ranks[0]["launches"]}
+    return launches, summary
+
+
+def nccl_run(cfg: MNGPConfig, dev) -> dict:
+    """Phase 14b: train_ml.main with --num_devices 2 (one rank a card,
+    nccl) for one epoch of ENTRY_STEPS steps on phase 9's scene: the
+    checkpoint and slim export written once, the test PSNR more than
+    3 dB above the untrained one, rank 0's rays/s."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        root = write_tanks_scene(tmp, cfg, dev)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            h = get_opts(entry_args(root, "untrained", "--num_devices", "1"))
+            h.moe_training = True
+            untrained = tt.NeRFSystem(h, device=dev)
+            untrained.setup()
+            psnr0 = untrained.validate(epoch=0)["psnr"]
+            untrained.close()
+            secs = []
+            system = train_ml.main(
+                entry_args(root, "nccl", "--num_epochs", "1",
+                           "--num_devices", "2"),
+                device=dev, on_step=step_timer(secs))
+            mesh = system.mesh
+            system.close()
+            run = os.path.join("TanksAndTemple", "Sphere", "nccl")
+            names = sorted(os.listdir(os.path.join("ckpts", run)))
+            with open(os.path.join("logs", run, "metrics.jsonl")) as f:
+                psnr = [json.loads(line)["value"] for line in f
+                        if '"test/psnr"' in line]
+        finally:
+            os.chdir(cwd)
+    rates = [8192 / x for x in secs[16:]]
+    print(f"[parallel] nccl: train_ml.main --num_devices 2 on "
+          f"{mesh.size} ranks: {len(secs)} steps, checkpoints {names}, "
+          f"test PSNR {psnr0:.3f} -> {psnr} dB, rank 0's rays/s median "
+          f"{float(np.median(rates)):.0f}")
+    check(mesh.size == 2, "the nccl run did not take two ranks")
+    check(names == ["epoch=0.ckpt", "epoch=0_slim.ckpt"],
+          f"nccl checkpoints {names}")
+    check(len(psnr) == 1 and psnr[0] > psnr0 + 3.0,
+          f"nccl test psnr {psnr0} -> {psnr}")
+    return {"steps": len(secs), "psnr_untrained": psnr0,
+            "psnr_trained": psnr[0], "rays_per_s": float(np.median(rates))}
+
+
+def parallel_phase(cfg: MNGPConfig, store: dict, dev, smi: str) -> tuple:
+    """Phase 14 (see the module docstring). Returns ({path: launch
+    counts}, summary)."""
+    t_phase = time.perf_counter()
+    launches, summary = {}, {}
+    launches["parallel"], summary["pair"] = pair_phase(cfg, store, dev)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        summary["nccl"] = nccl_run(cfg, dev)
+    else:
+        summary["nccl"] = f"not run: {n_cards} CUDA device"
+        print(f"[parallel] the NCCL path (train_ml.main --num_devices 2, "
+              f"one rank a card) did not run: this machine has {n_cards} "
+              f"CUDA device; it is not verified on a card")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    summary["scaling_bench"] = scaling_bench.run(device=dev)
+    torch.cuda.synchronize()
+    launches["scaling_bench"] = dict(kernels.launch_counts)
+    kernels.reset_launch_counts()
+    summary["bench_dedup_ms"] = {k: 1e3 * v for k, v in
+                                 bench_dedup.run(device=dev).items()}
+    torch.cuda.synchronize()
+    launches["bench_dedup"] = dict(kernels.launch_counts)
+    print(f"[parallel] scaling_bench and bench_dedup at their defaults: "
+          f"launches {launches['scaling_bench']}, "
+          f"{launches['bench_dedup']}")
+    check(launches["scaling_bench"]["brick3_table_grad"] > 0
+          and launches["bench_dedup"]["tcnn_table_grad"] > 0,
+          "scaling_bench or bench_dedup launched no table gradient kernel")
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"[parallel] phase 14 in {summary['seconds']:.1f} s; {smi}")
+    return launches, summary
+
+
 
 
 def main() -> None:
@@ -3460,7 +3874,14 @@ def main() -> None:
         train_checks[key] += recs
     print(json.dumps({"dense": summary_13}))
 
-    # 14. kernels line: per kernel and contract, the launches of the path
+    # 14. data parallelism: two gloo ranks on the card against one rank,
+    # the NCCL entry point where there are two cards, scaling_bench and
+    # bench_dedup
+    launches_14, summary_14 = parallel_phase(cfg, store, dev, smi)
+    phase_launches.update(launches_14)
+    print(json.dumps({"parallel": summary_14}))
+
+    # 15. kernels line: per kernel and contract, the launches of the path
     # that runs it (its training phase, or the examples'; every phase's
     # counts, the entry point's among them, under launches_by_path); ms, plain, library and bound at a
     # training step 0 microbatch, the shape of most launches (the
@@ -3510,7 +3931,7 @@ def main() -> None:
         if path == "train_brick3":       # rows 1-3: the entry points' too
             for entry in ("entry", "datasets", "single", "per_expert",
                           "unshared", "switch", "block", "mega", "dense",
-                          "dense_baselines"):
+                          "dense_baselines", "parallel"):
                 check(phase_launches[entry][name] > 0,
                       f"kernel {name} not launched on {entry}")
         runs = train_checks.get(key, []) + [

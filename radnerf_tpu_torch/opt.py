@@ -1,11 +1,7 @@
 """Command-line flags (twin of radnerf_tpu/opt.py: the same 62 flags, names
 and defaults, so that the reference's shell scripts translate
-mechanically).
-
-Two flags whose paths the port has not ported yet (--num_devices above
-1, --multihost) are accepted here and refused by
-`train.trainer.NeRFSystem` with a NotImplementedError that names the
-ROADMAP.md item.
+mechanically). --num_devices and --multihost build the data-parallel
+mesh of the training entry points (parallel/), as in the reference.
 """
 
 from __future__ import annotations
@@ -128,7 +124,8 @@ def get_parser() -> argparse.ArgumentParser:
     dev = parser.add_argument_group('device options')
     dev.add_argument('--num_devices', type=int, default=0,
                      help='devices in the ray-parallel mesh (0 = all '
-                          'local); the port trains on one device')
+                          'local): one rank each, started by the entry '
+                          'point (on the CPU: that many gloo ranks)')
     dev.add_argument('--samples_per_ray', type=int, default=192,
                      help='static per-ray occupied-sample budget S')
     dev.add_argument('--layout', type=str, default='flat',
@@ -162,7 +159,10 @@ def get_parser() -> argparse.ArgumentParser:
                           'memory). 0 = AUTO: one slice per 2048 rays; '
                           '1 forces single-pass')
     dev.add_argument('--multihost', action='store_true', default=False,
-                     help='join a multi-host job before building the mesh')
+                     help='join a multi-host job before building the '
+                          'mesh: a launcher (torchrun) starts one process '
+                          'per card and sets MASTER_ADDR, MASTER_PORT, '
+                          'RANK, WORLD_SIZE and LOCAL_RANK')
     dev.add_argument('--ckpt_backend', type=str, default='pickle',
                      choices=['pickle', 'orbax'],
                      help='how full checkpoints are written: pickle, '

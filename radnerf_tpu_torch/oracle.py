@@ -38,6 +38,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> dict:
     # the system's ray store always loads the train split; --split only
     # selects what is rendered
     hparams.split = "train"
+    hparams.num_devices = 1     # one process renders; no ranks to start
     system = NeRFSystem(hparams, device=device)
     try:
         system.setup()

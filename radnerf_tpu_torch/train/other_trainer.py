@@ -9,11 +9,17 @@
   to them over --overlap_ratio (near 0: one-hot).
 
 It is NeRFSystem with its own model, loss, grid-update densities and
-validation render; the anchors are not checkpointed, but computed again
-from the cameras on every start, resume included, as in the reference.
+validation render, on the same data-parallel mesh; the anchors are not
+checkpointed, but computed again from the cameras on every start, resume
+included, as in the reference. A step takes each rank's block of the
+batch in one pass, as the reference's step does (it builds its step
+without accumulation slices): --microbatch is not read here, and the cv
+term sees the whole block.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -31,7 +37,7 @@ from ..models.switch import (
 from ..render.block_render import block_render_test, block_render_train
 from ..render.ml_render import get_rays, render_rays_chunked
 from ..render.switch_render import switch_render_test, switch_render_train
-from .trainer import NeRFSystem, budget_util
+from .trainer import NeRFSystem, TrainConfig, budget_util
 
 
 def kmeans_cameras(positions: np.ndarray, k: int, iters: int = 50,
@@ -136,6 +142,10 @@ class OtherNeRFSystem(NeRFSystem):
                           n_experts=hparams.model_zoo_size,
                           compute_dtype=hparams.compute_dtype)
         self.anchors = None
+
+    def train_config(self) -> TrainConfig:
+        """NeRFSystem's options with one pass per step."""
+        return dataclasses.replace(super().train_config(), microbatch=1)
 
     def init_model(self, gen: torch.Generator) -> tuple:
         """The switch or block field and its one grid; for block / mega

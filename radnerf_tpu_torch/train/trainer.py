@@ -1,7 +1,8 @@
-"""Rad-NeRF training on one device (twin of radnerf_tpu/train/trainer.py):
-the training step and its loop (`Trainer`), and `NeRFSystem`, the shell
-of the entry points (train_ml.py, train.py, oracle.py) around it: data,
-epochs, validation, logging and checkpoints.
+"""Rad-NeRF training (twin of radnerf_tpu/train/trainer.py): the training
+step and its loop (`Trainer`), and `NeRFSystem`, the shell of the entry
+points (train_ml.py, train.py, oracle.py) around it: data, epochs,
+validation, logging and checkpoints, on one device or on the ranks of a
+data-parallel mesh (--num_devices, --multihost; parallel/).
 
 The MoE step (--moe_training): gate, the experts' render
 (ml_render_train: one union march and one shared hash encode by
@@ -19,6 +20,17 @@ re-picked from the measured buffer utilization (--layout dense has no
 budget). Batches are drawn on the device from a
 device-resident ray store; the per-ray start jitter is drawn from a
 torch.Generator and travels in the batch.
+
+On several ranks every rank draws the whole batch from its generator,
+seeded alike on every rank, and keeps its own block: the generators stay
+in lock-step, so the grid updates and the random backgrounds draw the
+same numbers everywhere, and a ray's jitter does not depend on how the
+batch is split. Each rank updates its grids from the same parameters and
+draws. A warmup update sets every cell once, so the ranks' grids agree
+bit for bit where their kernels and matrix products round alike (on the
+CPU, at equal thread counts). Outside warmup a cell drawn twice keeps an
+arbitrary one of its draws (the reference's scatter-set), so those
+updates end with rank 0's grids broadcast.
 """
 
 from __future__ import annotations
@@ -51,7 +63,12 @@ from ..models.ngp import (
     NGPConfig, init_ngp, init_ngp_state, update_density_grid,
 )
 from ..ops.hashgrid import hash_family, resolve_impl
-from ..parallel.step import make_train_step, tree_leaves
+from ..parallel.mesh import (
+    Mesh, initialize_multihost, make_mesh, single_rank_mesh,
+)
+from ..parallel.step import (
+    broadcast_from_main, make_train_step, shard_batch, tree_leaves,
+)
 from ..render.ml_render import get_rays, ml_render_train, render_rays_chunked
 from ..render.render import (
     RenderConfig, render_test_compacted, render_train,
@@ -125,11 +142,14 @@ class TrainConfig:
     adaptive_budget: bool = True     # re-pick the budget bucket
     layout: str = "flat"             # training samples: "flat" | "dense"
 
-    @property
-    def n_microbatch(self) -> int:
-        if self.microbatch:
-            return self.microbatch
-        return max(1, -(-self.batch_size // MICROBATCH_RAYS))
+
+def n_microbatch(tcfg: TrainConfig, ranks: int = 1) -> int:
+    """Accumulation slices of one rank's block of the batch, of
+    batch_size // ranks rays (auto: one per MICROBATCH_RAYS rays of the
+    block, as the reference counts them on the local batch)."""
+    if tcfg.microbatch:
+        return tcfg.microbatch
+    return max(1, -(-(tcfg.batch_size // ranks) // MICROBATCH_RAYS))
 
 
 def render_config(cfg: NGPConfig, tcfg: TrainConfig) -> RenderConfig:
@@ -237,22 +257,24 @@ def budget_util(out: dict) -> torch.Tensor:
     return torch.zeros((), device=out["rgb"].device)
 
 
-def sample_batch(gen: torch.Generator, data: dict, batch_size: int) -> dict:
-    """Uniform (image, pixel) draws and the per-ray start jitter, on the
-    ray store's device."""
+def sample_batch(gen: torch.Generator, data: dict, batch_size: int,
+                 mesh: Mesh | None = None) -> dict:
+    """Uniform (image, pixel) draws and the per-ray start jitter of the
+    whole batch, on the ray store's device; with a mesh, this rank's
+    block of it (shard_batch)."""
     dev = data["directions"].device
     n_img, n_pix = data["poses"].shape[0], data["directions"].shape[0]
-    return {
+    return shard_batch({
         "img_idxs": torch.randint(0, n_img, (batch_size,), generator=gen,
                                   device=dev),
         "pix_idxs": torch.randint(0, n_pix, (batch_size,), generator=gen,
                                   device=dev),
         "noise": torch.rand(batch_size, generator=gen, device=dev),
-    }
+    }, mesh)
 
 
 class Trainer:
-    """The state of one training run on one device: parameters {model,
+    """The state of one rank of a training run: parameters {model,
     gate} (the MoE; gate_params None: {model}, the single field) and,
     with --optimize_ext, "ext" (updated in place), Adam, the density
     grids, the ray store and the generator of every draw (on the ray
@@ -266,12 +288,23 @@ class Trainer:
     One torch.optim.Adam holds two parameter groups, as the reference's
     optax.multi_transform holds two Adams: group 0 the network {model[,
     gate]} (eps 1e-15, the cosine schedule), group 1 the pose corrections
-    (EXT_LR, EXT_EPS, no schedule)."""
+    (EXT_LR, EXT_EPS, no schedule).
+
+    `mesh` (default: one rank on the ray store's device) is the
+    data-parallel mesh: each step takes this rank's block of the batch
+    in n_microbatch(tcfg, mesh.size) slices and averages over the ranks
+    (parallel.step). Every rank must start from the same parameters,
+    grids and generator state."""
 
     def __init__(self, cfg: NGPConfig, tcfg: TrainConfig, params: dict,
                  gate_params: dict | None, model_state: dict, data: dict,
                  gen: torch.Generator, ext_params: dict | None = None,
-                 loss=None, density_fn=None):
+                 loss=None, density_fn=None, mesh: Mesh | None = None):
+        self.mesh = mesh or single_rank_mesh(data["directions"].device)
+        if tcfg.batch_size % self.mesh.size:
+            raise ValueError(f"batch {tcfg.batch_size} not divisible by "
+                             f"{self.mesh.size} ranks")
+        self.n_microbatch = n_microbatch(tcfg, self.mesh.size)
         self.cfg, self.tcfg, self.gen = cfg, tcfg, gen
         self.loss_fn = loss or loss_fn
         self.rcfg = render_config(cfg, tcfg)
@@ -303,14 +336,19 @@ class Trainer:
             lambda b, s, batch, d: self.loss_fn(b, s, batch, d, self.cfg,
                                                 self.rcfg, self.tcfg,
                                                 self.gen),
-            self.optimizer, tcfg.n_microbatch,
+            self.optimizer, self.n_microbatch, self.mesh,
         )
 
     def update_grid(self, warmup: bool) -> None:
+        """Update the density grids (every cell with `warmup`). On several
+        ranks an update outside warmup ends with rank 0's grids: a cell
+        drawn twice keeps one of its draws, and which one is not fixed."""
         self.model_state = self._update_grid(
             self.bundle["model"], self.model_state, self.cfg, self.gen,
             DENSITY_THRESHOLD, warmup,
         )
+        if not warmup:
+            broadcast_from_main(tree_leaves(self.model_state), self.mesh)
 
     def train_step(self, batch: dict):
         """One Adam update, the network at the scheduled learning rate
@@ -335,7 +373,8 @@ class Trainer:
         UPDATE_INTERVAL steps (all cells below warmup_steps), the
         adaptive budget at grid-update boundaries (with
         tcfg.adaptive_budget and the flat layout), a batch, a step.
-        `on_step(step, loss, aux)` sees every step's (device) results."""
+        `on_step(step, loss, aux)` sees every step's (device) results,
+        averaged over the ranks."""
         adaptive = self.tcfg.adaptive_budget and self.rcfg.layout == "flat"
         for _ in range(n_steps):
             step = self.global_step
@@ -343,28 +382,14 @@ class Trainer:
                 self.update_grid(warmup=step < self.tcfg.warmup_steps)
                 if adaptive and step >= self.tcfg.warmup_steps:
                     self.maybe_adapt_budget()
-            batch = sample_batch(self.gen, self.data, self.tcfg.batch_size)
+            batch = sample_batch(self.gen, self.data, self.tcfg.batch_size,
+                                 self.mesh)
             loss, aux = self.train_step(batch)
             if adaptive and step % UPDATE_INTERVAL == UPDATE_INTERVAL - 1:
                 # one host read, right before the next grid update
                 self.last_budget_util = float(aux["budget_util"])
             if on_step is not None:
                 on_step(step, loss, aux)
-
-
-def refuse_unported(h) -> None:
-    """NotImplementedError naming every flag of `h` whose path the port
-    has not ported, with its ROADMAP.md item."""
-    refused = [
-        msg for cond, msg in (
-            (h.num_devices > 1, "--num_devices > 1 (queue 1, item 3: "
-                                "parallel/)"),
-            (h.multihost, "--multihost (queue 1, item 3: parallel/)"),
-        ) if cond
-    ]
-    if refused:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP.md): " + "; ".join(refused))
 
 
 class NeRFSystem:
@@ -377,16 +402,28 @@ class NeRFSystem:
     logs/, ckpts/ and results/<dataset_name>/<scene_name>/<exp_name> in
     the working directory, as in the reference. With --ckpt_backend
     orbax the checkpoints are written by a background thread
-    (utils.ckpt.AsyncCkptWriter)."""
+    (utils.ckpt.AsyncCkptWriter).
+
+    The system is one rank of the mesh that --num_devices (0: every
+    local card) and --multihost give (parallel.make_mesh; --multihost
+    first joins a launcher's group), on that rank's card (`device`
+    "cuda": cuda:<local rank>). Every rank reads the scene and a
+    checkpoint to resume; rank 0 alone validates and writes logs/,
+    metrics, images, checkpoints and the slim export, while the others
+    wait for it at the end of each epoch."""
 
     def __init__(self, hparams, device=DEFAULT_DEVICE):
-        refuse_unported(hparams)
         self.h = h = hparams
-        self.device = torch.device(device)
+        if h.multihost:
+            initialize_multihost(device=device)
+        self.mesh = make_mesh(h.num_devices, device)
+        self.device = self.mesh.device
         self.moe = bool(getattr(h, "moe_training", False))
         run = f"{h.dataset_name}/{h.scene_name}/{h.exp_name}"
-        self.logger = init_global_logger(f"logs/{run}/log.txt")
-        self.writer = MetricWriter(f"logs/{run}")
+        main = self.mesh.is_main
+        self.logger = init_global_logger(f"logs/{run}/log.txt" if main
+                                         else None)
+        self.writer = MetricWriter(f"logs/{run}" if main else None)
         self.ckpt_dir = f"ckpts/{run}"
         self.val_dir = f"results/{run}"
         kw = dict(scale=h.scale, log2_T=h.hash_table_size,
@@ -410,7 +447,18 @@ class NeRFSystem:
             f"train dataset: {len(self.train_dataset.poses)} images, "
             f"img_wh={self.train_dataset.img_wh}, images read by "
             f"{self.train_dataset.decoder}, device={self.device}")
-        self.tcfg = TrainConfig(
+        self.tcfg = self.train_config()
+        mb = n_microbatch(self.tcfg, self.mesh.size)
+        if mb > 1:
+            self.logger.info(
+                f"microbatch: batch {h.batch_size} on {self.mesh.size} "
+                f"rank(s) -> {mb} accumulation slices a rank")
+        self.configure_model()
+
+    def train_config(self) -> TrainConfig:
+        """The Trainer's options from the flags, on this mesh."""
+        h = self.h
+        return TrainConfig(
             lr=h.lr, num_epochs=h.num_epochs,
             steps_per_epoch=(h.steps_per_epoch
                              or self.train_dataset.STEPS_PER_EPOCH),
@@ -423,11 +471,6 @@ class NeRFSystem:
             random_bg=h.random_bg, adaptive_budget=h.adaptive_budget,
             layout=h.layout,
         )
-        if self.tcfg.n_microbatch > 1:
-            self.logger.info(
-                f"microbatch: batch {h.batch_size} -> "
-                f"{self.tcfg.n_microbatch} accumulation slices")
-        self.configure_model()
 
     def init_model(self, gen: torch.Generator) -> tuple:
         """(params, gate params or None, model state) on the device, the
@@ -468,7 +511,7 @@ class NeRFSystem:
         self.trainer = Trainer(
             self.cfg, self.tcfg, params, gate, state, data,
             torch.Generator(device=dev).manual_seed(h.seed + 1), ext,
-            **self.trainer_hooks())
+            mesh=self.mesh, **self.trainer_hooks())
 
     def lr_schedule(self, step: int) -> float:
         """The cosine schedule (train_ml.py:148-151) at `step`."""
@@ -500,8 +543,9 @@ class NeRFSystem:
         validation every min(num_epochs, 10) epochs and at the last, a
         checkpoint per epoch, a log line and metrics every 100 steps,
         then the slim export (which waits for a checkpoint still being
-        written). `on_step(step, loss, aux)` is called after every
-        step."""
+        written); rank 0 alone validates and writes, and every rank
+        waits for it at the end of each epoch. `on_step(step, loss, aux)`
+        is called after every step. The rays/s are the whole batch's."""
         h = self.h
         spe = self.tcfg.steps_per_epoch
         check_every = min(h.num_epochs, 10)         # train_ml.py:296
@@ -512,7 +556,7 @@ class NeRFSystem:
         def after_step(step, loss, aux):
             nonlocal rays_done, prof
             rays_done += h.batch_size
-            if h.profile_steps and step == 9:
+            if h.profile_steps and step == 9 and self.mesh.is_main:
                 prof = self._start_profile()
             elif prof is not None and step == 9 + h.profile_steps:
                 self._stop_profile(prof)
@@ -535,9 +579,11 @@ class NeRFSystem:
             if (epoch + 1) % check_every == 0 or epoch == h.num_epochs - 1:
                 self.validate(epoch)
             self.save_checkpoint(epoch)
+            self.mesh.barrier()
         if prof is not None:
             self._stop_profile(prof)
         self.export_slim(h.num_epochs - 1)
+        self.mesh.barrier()
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
@@ -587,7 +633,9 @@ class NeRFSystem:
         --eval_lpips) against the ground truth where there is one, on the
         host; the prediction and its turbo depth as PNGs unless
         --no_save_test. Returns {"psnr", "ssim"} (None without ground
-        truth)."""
+        truth, and on every rank but 0, which renders nothing)."""
+        if not self.mesh.is_main:
+            return {"psnr": None, "ssim": None}
         h, ds = self.h, self.test_dataset
         w, img_h = ds.img_wh
         directions = torch.from_numpy(ds.directions).to(self.device)
@@ -715,7 +763,9 @@ class NeRFSystem:
         RESOLVED hash impl (a table decodes only under its family); the
         MoE's gate_params, and with --optimize_ext ext_params. With
         --ckpt_backend orbax the file is written in the background (the
-        values are copied to the host first)."""
+        values are copied to the host first). Rank 0 alone writes."""
+        if not self.mesh.is_main:
+            return
         hp = dict(vars(self.h))
         hp["resolved_hash_impl"] = resolve_impl(self.cfg.hash_impl)
         params, gate = params_to_jax(self.params, self.gate_params)
@@ -746,7 +796,10 @@ class NeRFSystem:
     def export_slim(self, epoch: int) -> None:
         """The slim file of the last checkpoint, as the reference writes
         it: slim_ckpt keeps "pose_params", which no checkpoint holds (the
-        poses are saved as "ext_params"), so no slim file carries poses."""
+        poses are saved as "ext_params"), so no slim file carries poses.
+        Rank 0 alone writes."""
+        if not self.mesh.is_main:
+            return
         self.wait_for_checkpoint()
         path = os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt")
         if os.path.exists(path):

@@ -9,12 +9,23 @@
 (scripts/rad_TAT.sh's ZOO=2 run). Trains on the CUDA device; `main(...,
 device="cpu")` runs the same on the CPU with the kernels' plain
 versions.
+
+Data parallelism: --num_devices N trains on N ranks of this host, one a
+card (0, the default: every card; on the CPU, N gloo ranks), started by
+`run`. Across hosts, a launcher starts one process per card and each
+joins its group with --multihost:
+
+    torchrun --nnodes 2 --nproc_per_node 4 --rdzv_endpoint HOST:PORT \
+        -m radnerf_tpu_torch.train_ml --multihost ...
 """
 
 from __future__ import annotations
 
 from . import DEFAULT_DEVICE
 from .opt import get_opts
+from .parallel.mesh import (
+    distributed_is_initialized, launch, local_device_count,
+)
 from .train.trainer import NeRFSystem
 
 
@@ -23,9 +34,32 @@ def run(hparams, device=DEFAULT_DEVICE, on_step=None,
     """Set up a `system_cls` (NeRFSystem or a subclass), resume
     (--ckpt_path, or --resume auto), then validate (--val_only) or train.
     `on_step(step, loss, aux)` is called after every training step.
-    Returns the system."""
+    Returns the system.
+
+    Where --num_devices asks for several ranks (0: every local card) and
+    neither --multihost nor a group started them, ranks 1..N-1 are
+    spawned (parallel.launch) and rank 0 runs here: the system returned
+    and the steps `on_step` sees are rank 0's."""
     if hparams.val_only and not hparams.ckpt_path:
         raise ValueError("You need to provide a @ckpt_path for validation!")
+    ranks = hparams.num_devices or local_device_count(device)
+    if ranks > 1 and not (hparams.multihost
+                          or distributed_is_initialized()):
+        return launch(ranks, _other_rank, (hparams, device, system_cls),
+                      device=device,
+                      rank0=lambda: train(hparams, device, on_step,
+                                          system_cls))
+    return train(hparams, device, on_step, system_cls)
+
+
+def _other_rank(hparams, device, system_cls) -> None:
+    """A spawned rank of `run`: its system trained, then closed."""
+    train(hparams, device, None, system_cls).close()
+
+
+def train(hparams, device=DEFAULT_DEVICE, on_step=None,
+          system_cls=NeRFSystem) -> NeRFSystem:
+    """`run`'s work on this process's rank."""
     system = system_cls(hparams, device=device)
     system.setup()
     if hparams.ckpt_path:

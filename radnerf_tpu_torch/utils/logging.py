@@ -16,33 +16,39 @@ import os
 LOGGER_NAME = "radnerf_tpu_torch"
 
 
-def init_global_logger(log_path: str) -> logging.Logger:
+def init_global_logger(log_path: str | None) -> logging.Logger:
     """The package's logger, writing to `log_path` and the console (the
-    handlers of an earlier call are closed and replaced)."""
-    os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
+    handlers of an earlier call are closed and replaced). With no path
+    (a data-parallel rank other than 0) it writes no file, and to the
+    console only warnings and errors."""
     logger = logging.getLogger(LOGGER_NAME)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if log_path else logging.WARNING)
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
     fmt = logging.Formatter(
         "%(asctime)s | %(levelname)s | %(message)s", "%Y-%m-%d %H:%M:%S"
     )
-    fh = logging.FileHandler(log_path)
-    fh.setFormatter(fmt)
-    sh = logging.StreamHandler()
-    sh.setFormatter(fmt)
-    logger.addHandler(fh)
-    logger.addHandler(sh)
+    handlers = [logging.StreamHandler()]
+    if log_path:
+        os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
+        handlers.append(logging.FileHandler(log_path))
+    for h in handlers:
+        h.setFormatter(fmt)
+        logger.addHandler(h)
     return logger
 
 
 class MetricWriter:
     """Scalars to `<log_dir>/metrics.jsonl` (one JSON object a line: tag,
-    value, step), and to TensorBoard where it is installed."""
+    value, step), and to TensorBoard where it is installed. With no
+    log_dir (a data-parallel rank other than 0) it writes nothing."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str | None):
         self.logdir = log_dir
+        self._jsonl = self._tb = None
+        if log_dir is None:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         try:
@@ -53,6 +59,8 @@ class MetricWriter:
             self._tb = SummaryWriter(log_dir)
 
     def scalar(self, tag: str, value: float, step: int) -> None:
+        if self._jsonl is None:
+            return
         self._jsonl.write(
             json.dumps({"tag": tag, "value": float(value), "step": step})
             + "\n"
@@ -62,6 +70,7 @@ class MetricWriter:
             self._tb.add_scalar(tag, float(value), step)
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

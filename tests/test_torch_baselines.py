@@ -736,14 +736,14 @@ def workdir(tmp_path_factory):
             os.chdir(cwd)
 
 
-def _pair(workdir, kind):
+def _pair(workdir, kind, *extra):
     """The port's and the JAX package's OtherNeRFSystem of `kind` from
     the same flags, in float32 (--no-adaptive_budget on the JAX side),
     the port holding the JAX system's parameters, both a sphere
     occupancy."""
     root, work = workdir
     os.chdir(work)
-    f32 = ("--compute_dtype", "float32")
+    f32 = ("--compute_dtype", "float32", *extra)
     port = tot.OtherNeRFSystem(get_opts(_args(root, f"port_{kind}", kind,
                                               *f32)), device="cpu")
     port.setup()
@@ -770,22 +770,22 @@ def block_pair(workdir):
     return _pair(workdir, "block")
 
 
-def _step_batch(jsys, kind, key, budget):
-    """256 rays of the fixture's store and the draws the JAX loss takes
+def _step_batch(jsys, kind, key, budget, n=256):
+    """n rays of the fixture's store and the draws the JAX loss takes
     from the step's `key` (the jitter; switch: the gate noise of every
     slot, (N, budget, K) in the batch)."""
     rng = np.random.default_rng(0)
     n_img, n_pix = jsys.data["rays"].shape[:2]
-    b = {"img_idxs": rng.integers(0, n_img, 256).astype(np.int32),
-         "pix_idxs": rng.integers(0, n_pix, 256).astype(np.int32)}
+    b = {"img_idxs": rng.integers(0, n_img, n).astype(np.int32),
+         "pix_idxs": rng.integers(0, n_pix, n).astype(np.int32)}
     tb = {"img_idxs": _t(b["img_idxs"]).long(),
           "pix_idxs": _t(b["pix_idxs"]).long()}
     if kind == "switch":
-        noise, gate_noise = _switch_draws(key, 256, budget, 2)
-        tb["gate_noise"] = _t(gate_noise.reshape(256, budget, 2))
+        noise, gate_noise = _switch_draws(key, n, budget, 2)
+        tb["gate_noise"] = _t(gate_noise.reshape(n, budget, 2))
     else:
         noise = np.array(jax.random.uniform(jax.random.split(key)[0],
-                                            (256,)))
+                                            (n,)))
     tb["noise"] = _t(noise)
     return b, tb
 
@@ -805,11 +805,34 @@ def test_system_adam_step_matches_the_jax_system(kind, switch_pair,
     float32 rounding. The JAX aux lacks budget_util (the reference fault
     at step 15); the port's carries it."""
     port, jsys = switch_pair if kind == "switch" else block_pair
+    _adam_step_vs_jax(port, jsys, kind, 256)
+
+
+@pytest.fixture(scope="module")
+def switch_pair_2304(workdir):
+    return _pair(workdir, "switch", "--batch_size", "2304")
+
+
+def test_switch_step_takes_the_whole_batch_in_one_pass(switch_pair_2304,
+                                                       patched):
+    """At 2304 rays, two slices of 1152 by the auto rule, the port's
+    baseline still takes one pass, as the JAX system builds its step
+    without accumulation slices: the cv term on the gate's load and the
+    PSNR are the whole batch's. The same tolerance rule as the 256-ray
+    step above."""
+    port, jsys = switch_pair_2304
+    assert port.trainer.n_microbatch == 1
+    _adam_step_vs_jax(port, jsys, "switch", 2304)
+
+
+def _adam_step_vs_jax(port, jsys, kind, n):
+    """One Adam step of the port's system against the JAX system's
+    train_step on the same n rays and draws (see the tests above)."""
     tr = port.trainer
     assert not port.moe and set(tr.bundle) == {"model"}
     assert tr.buckets == tt.BUDGET_BUCKETS
     key = jax.random.PRNGKey(4)
-    b, tb = _step_batch(jsys, kind, key, tr.rcfg.budget_per_ray)
+    b, tb = _step_batch(jsys, kind, key, tr.rcfg.budget_per_ray, n)
     trainable, ost = jax.tree_util.tree_map(
         jnp.copy, (jsys.trainable, jsys.opt_state))
     new, _, jl, jaux = jsys.train_step(trainable, ost, jsys.model_state,

@@ -10,10 +10,10 @@ import pytest
 import torch
 
 from radnerf_tpu_torch.examples import (
-    bench_brick3, bench_brick_fetch, bench_brick_grad, bench_gather_shapes,
-    bench_hashgrid, bench_render, bench_scatter, bench_vmem_gather,
-    convergence, profile_ops, profile_step, proto_pallas_gather, smoke_e2e,
-    trace_step,
+    bench_brick3, bench_brick_fetch, bench_brick_grad, bench_dedup,
+    bench_gather_shapes, bench_hashgrid, bench_render, bench_scatter,
+    bench_vmem_gather, convergence, profile_ops, profile_step,
+    proto_pallas_gather, scaling_bench, smoke_e2e, trace_step,
 )
 from radnerf_tpu_torch.train import trainer as tt
 
@@ -113,6 +113,17 @@ SCRIPTS = {
          "march (64 rays, K=1024 cand)", "composite fwd (64x32)",
          "composite fwd+bwd", "geo MLP fwd (4k x 32->64->17)",
          "geo MLP fwd+bwd"]),
+    # one rank, then two gloo ranks of the CPU (parallel.launch)
+    "scaling_bench": (
+        lambda: scaling_bench.run(64, 2, 10, 16, 16, 2, [1, 2],
+                                  device="cpu"),
+        ["# devices available:", '{"devices": 1, "rays_per_s":',
+         '{"devices": 2, "rays_per_s":', '"efficiency_vs_1":']),
+    "bench_dedup": (
+        lambda: bench_dedup.run(64, 12, 12, 1, device="cpu"),
+        ["# stream:", "# run counts vs caps: not applicable",
+         "window fw  :", "dedup  fw  :", "window fwbw:", "hybrid fwbw:",
+         "dgrad  fwbw:"]),
     # the system's density grid (128^3, no flag) cut to 32^3 and 4 levels,
     # as tests/test_torch_system.py does
     "convergence_scene": (

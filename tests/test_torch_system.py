@@ -8,8 +8,8 @@ learning rate is the JAX closure's; --no-adaptive_budget, --random_bg,
 --host_sampling (no effect, as in the reference), the oracle, the train.py
 twin (the MoE with --moe_training, the single NGP field without), the
 single field trained, validated, checkpointed and rendered by the oracle,
---ckpt_backend orbax training, checkpointing and resuming, the flags the
-port refuses, and a JAX checkpoint resumed by the system.
+--ckpt_backend orbax training, checkpointing and resuming, the layout
+and data-parallel flags, and a JAX checkpoint resumed by the system.
 
 The system builds MNGPConfig (NGPConfig for the single field) from the
 flags; the density grid (128^3 in the reference, no flag) is cut to 32^3
@@ -37,6 +37,7 @@ from radnerf_tpu.train.trainer import NeRFSystem as JNeRFSystem
 from radnerf_tpu.utils import ckpt as jck
 from radnerf_tpu_torch import oracle, train_ml
 from radnerf_tpu_torch.opt import get_opts, get_parser
+from radnerf_tpu_torch.parallel import mesh as tmesh
 from radnerf_tpu_torch.parallel.step import tree_leaves
 from radnerf_tpu_torch.train import trainer as tt
 from radnerf_tpu_torch.utils.ckpt import load_ckpt
@@ -310,17 +311,34 @@ def test_a_jax_checkpoint_resumes_in_the_system(run, tmp_path):
 @pytest.mark.parametrize("extra", [
     ["--layout", "dense"], ["--num_devices", "2"], ["--multihost"]])
 def test_unported_flags_are_refused(tmp_path, monkeypatch, extra):
-    """--num_devices > 1 and --multihost are refused before anything is
-    written; --layout dense, once refused, is ported and accepted (its
-    training runs in test_torch_dense)."""
+    """The three flags this test once saw refused are ported now (the
+    name is kept so that its history reads on): --layout dense is
+    accepted (its training runs in test_torch_dense); --num_devices 2,
+    once refused, builds a 2-rank
+    mesh on two processes (parallel.launch; its training runs in
+    test_torch_parallel); --multihost, once refused, joins a launcher's
+    group, and without the launcher's environment raises naming what is
+    missing, before anything is written."""
     monkeypatch.chdir(tmp_path)
     if extra[0] == "--layout":
         system = system_for("nowhere", "x", *extra)
-        assert system.h.layout == "dense"
-        tt.refuse_unported(system.h)
+        assert system.h.layout == "dense" and system.mesh.size == 1
         system.close()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    if extra[0] == "--num_devices":
+        monkeypatch.setattr(tmesh, "TIMEOUT", tmesh.datetime.timedelta(
+            seconds=300))
+        h = get_opts(args("nowhere", "x", *extra))
+        system = tmesh.launch(2, tt.NeRFSystem, (h, "cpu"), device="cpu")
+        assert (system.mesh.size, system.mesh.rank) == (2, 0)
+        assert system.device == torch.device("cpu")
+        system.close()
+        assert os.listdir(tmp_path) == ["logs"]
+        return
+    for k in tmesh.LAUNCHER_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="not set: MASTER_ADDR, "
+                       "MASTER_PORT, RANK, WORLD_SIZE"):
         system_for("nowhere", "x", *extra)
     assert os.listdir(tmp_path) == []
 
