@@ -319,6 +319,7 @@ from radnerf_tpu_torch.train.other_trainer import (
     OtherNeRFSystem, kmeans_cameras, other_density_fn, other_loss_fn,
     spatial_gating,
 )
+from radnerf_tpu_torch.utils import trace
 from radnerf_tpu_torch.utils.ckpt import load_ckpt
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1244,12 +1245,12 @@ def examples_phase(dev) -> tuple:
     E, R = tvg.ELEMS, tvg.R
     T, M = tpg.T, tpg.M
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     tvg.run(E, R, device=dev)
     tvg.run(E, WIDE_ROWS, device=dev)
     tpg.run(T, M, device=dev)
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
     print(f"[examples] launches of the scripts' runs: {launches}")
 
     recs = vmem_gather_checks(E, R, dev)
@@ -1479,12 +1480,12 @@ def fit(trainer, n_steps: int, label: str) -> tuple:
                   f"{float(trainer.model_state['occ'].float().mean()):.4f}")
 
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     t_last[0] = t0 = time.perf_counter()
     trainer.fit_steps(n_steps, on_step)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
     rates = [tcfg.batch_size / s for s in secs[16:]]
     psnrs = [r["psnr"] for r in log]
     first, last = float(np.mean(psnrs[:16])), float(np.mean(psnrs[-16:]))
@@ -1869,10 +1870,10 @@ def train_vs_cpu(trainer, cfg: MNGPConfig | None = None,
             batch.update(batch_extra(batch, seed))
         pinning = pin_forward or pin_gate
         pg, pc = (StepProbe(), StepProbe()) if pinning else (None, None)
-        before = kernels.launch_counts[kernel]
+        before = kernels.launches()[kernel]
         with route.record() if route else contextlib.nullcontext():
             lg, ag, gg = cpu_step(trainer, cfg, batch, dev, pg)
-        check(kernels.launch_counts[kernel] == before + grad_launches,
+        check(kernels.launches()[kernel] == before + grad_launches,
               f"{label}: the card step did not launch {kernel} "
               f"{grad_launches} times")
         with route.replay() if route else contextlib.nullcontext():
@@ -2037,7 +2038,7 @@ def entry_phase(cfg: MNGPConfig, dev, smi: str) -> tuple:
 def entry_runs(root: str, dev) -> dict:
     run = os.path.join("TanksAndTemple", "Sphere")
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
 
     # the untrained system, validated once
     h = get_opts(entry_args(root, "untrained"))
@@ -2128,7 +2129,7 @@ def entry_runs(root: str, dev) -> dict:
     for s in systems:
         s.close()
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
 
     mb = tt.n_microbatch(tt.TrainConfig(batch_size=h.batch_size))
     want = mb * n2
@@ -2159,7 +2160,7 @@ def single_runs(root: str, dev) -> dict:
 
     run = os.path.join("TanksAndTemple", "Sphere")
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     untrained = tt.NeRFSystem(get_opts(single_args(root, "untrained")),
                               device=dev)
     untrained.setup()
@@ -2218,7 +2219,7 @@ def single_runs(root: str, dev) -> dict:
           f"{got['psnr']:.6f} dB")
     check(abs(got["psnr"] - psnr2) <= 1e-3, "single oracle psnr")
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
     mb = tt.n_microbatch(tt.TrainConfig())
     check(launches["brick3_table_grad"] == mb * n2,
           f"brick3_table_grad launched {launches['brick3_table_grad']} "
@@ -2348,10 +2349,10 @@ def smoke_run() -> tuple:
     defaults (its own check: PSNR up by more than 5 dB); the dedup
     family in float32, so tcnn_table_grad once per step."""
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     res = smoke_e2e.main(["--device", "cuda"])
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
     check(launches["tcnn_table_grad"] == SMOKE_STEPS
           and launches["brick3_table_grad"] == 0,
           f"smoke_e2e launches {launches}")
@@ -2419,7 +2420,7 @@ def baseline_runs(kind: str, root: str, dev) -> dict:
     launch counts and the resumed system."""
     run = os.path.join("TanksAndTemple", "Sphere")
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     untrained = OtherNeRFSystem(get_opts(baseline_args(root, kind,
                                                        "untrained")),
                                 device=dev)
@@ -2463,7 +2464,7 @@ def baseline_runs(kind: str, root: str, dev) -> dict:
         device=dev, on_step=step_timer(secs[1]))
     resumed.close()
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
     n2 = (ENTRY_EPOCHS + 1) * ENTRY_STEPS
     with open(os.path.join("logs", run, kind, "log.txt")) as f:
         log = f.read()
@@ -2497,7 +2498,7 @@ def mega_run(root: str, dev) -> tuple:
     """Phase 12c: --model_type mega for DS_SHORT_STEPS steps and one
     validation (finite losses; brick3_table_grad 4 per step)."""
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     losses = []
     system = train_other.main(
         baseline_args(root, "mega", "mega", "--steps_per_epoch",
@@ -2506,7 +2507,7 @@ def mega_run(root: str, dev) -> tuple:
             float(loss)))
     system.close()
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
     with open(os.path.join("logs", "TanksAndTemple", "Sphere", "mega",
                            "metrics.jsonl")) as f:
         psnr = [json.loads(line)["value"] for line in f
@@ -3044,7 +3045,7 @@ def datasets_phase(dev, smi: str) -> tuple:
           f"resize_linear 1248x920 -> 648x484 "
           f"{summary['codec']['resize_1248x920_to_648x484_s']:.4f} s")
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     steps = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_datasets_") as tmp:
         cwd = os.getcwd()
@@ -3065,7 +3066,7 @@ def datasets_phase(dev, smi: str) -> tuple:
         finally:
             os.chdir(cwd)
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
     want = tt.n_microbatch(tt.TrainConfig(batch_size=8192)) * steps
     check(launches["brick3_table_grad"] == want,
           f"brick3_table_grad launched {launches['brick3_table_grad']} "
@@ -3147,7 +3148,7 @@ def dense_entry(root: str, dev) -> dict:
     run."""
     run = os.path.join("TanksAndTemple", "Sphere")
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     h = get_opts(entry_args(root, "dense_untrained", *DENSE_ARGS))
     h.moe_training = True
     untrained = tt.NeRFSystem(h, device=dev)
@@ -3162,7 +3163,7 @@ def dense_entry(root: str, dev) -> dict:
                            device=dev, on_step=step_timer(secs))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
     check(system.trainer.rcfg.layout == "dense", "the entry point did not "
           "train on the dense layout")
     system.close()
@@ -3268,7 +3269,7 @@ def dense_baselines(root: str, dev) -> tuple:
     with --layout dense and one validation each: finite losses and PSNR.
     Returns (launch counts of both runs, summary)."""
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     out = {}
     for kind in ("switch", "block"):
         losses = []
@@ -3295,7 +3296,7 @@ def dense_baselines(root: str, dev) -> tuple:
               f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, test PSNR "
               f"{psnr[0]:.3f} dB")
     torch.cuda.synchronize()
-    return dict(kernels.launch_counts), out
+    return kernels.launches(), out
 
 
 def dense_phase(scene: dict, store: dict, dev, smi: str) -> tuple:
@@ -3461,10 +3462,10 @@ def parallel_rank(rank: int, tmp: str, cfg: MNGPConfig,
                                     tr.rcfg, tr.tcfg, tr.gen),
             tr.n_microbatch)(tr.bundle, batch)
         torch.cuda.synchronize()
-        kernels.reset_launch_counts()
+        trace.reset()
         loss, aux = trainer.train_step(batch)
         torch.cuda.synchronize()
-        step_launches = dict(kernels.launch_counts)
+        step_launches = kernels.launches()
         out = {"loss": float(loss),
                "aux": {k: float(v) for k, v in aux.items()},
                "grads": [p.grad.detach().cpu()
@@ -3659,15 +3660,15 @@ def parallel_phase(cfg: MNGPConfig, store: dict, dev, smi: str) -> tuple:
               f"one rank a card) did not run: this machine has {n_cards} "
               f"CUDA device; it is not verified on a card")
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     summary["scaling_bench"] = scaling_bench.run(device=dev)
     torch.cuda.synchronize()
-    launches["scaling_bench"] = dict(kernels.launch_counts)
-    kernels.reset_launch_counts()
+    launches["scaling_bench"] = kernels.launches()
+    trace.reset()
     summary["bench_dedup_ms"] = {k: 1e3 * v for k, v in
                                  bench_dedup.run(device=dev).items()}
     torch.cuda.synchronize()
-    launches["bench_dedup"] = dict(kernels.launch_counts)
+    launches["bench_dedup"] = kernels.launches()
     print(f"[parallel] scaling_bench and bench_dedup at their defaults: "
           f"launches {launches['scaling_bench']}, "
           f"{launches['bench_dedup']}")
@@ -3738,13 +3739,13 @@ def main() -> None:
     render_rays_chunked(params, state, cfg, gate, directions[:CHUNK], pose,
                         rcfg, chunk=CHUNK)
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    trace.reset()
     t0 = time.perf_counter()
     out = render_rays_chunked(params, state, cfg, gate, directions, pose,
                               rcfg, chunk=CHUNK)
     torch.cuda.synchronize()
     secs = [time.perf_counter() - t0]
-    launches = dict(kernels.launch_counts)
+    launches = kernels.launches()
     for _ in range(RENDER_REPEATS - 1):      # the spread of the same render
         t0 = time.perf_counter()
         render_rays_chunked(params, state, cfg, gate, directions, pose, rcfg,
@@ -3796,11 +3797,11 @@ def main() -> None:
     # the same 256 rays with hash_impl 'dedup': the tcnn-hash forward in
     # PyTorch, no brick3 table packed and no brick3 kernel launched
     cfg_d = dataclasses.replace(cfg, hash_impl="dedup")
-    kernels.reset_launch_counts()
+    trace.reset()
     gpu = render_rays_chunked(params, state, cfg_d, gate, dirs, pose, rcfg,
                               chunk=CPU_RAYS)
     torch.cuda.synchronize()
-    dedup_render_launches = dict(kernels.launch_counts)
+    dedup_render_launches = kernels.launches()
     cpu = render_rays_chunked(to_cpu(params), to_cpu(state), cfg_d,
                               to_cpu(gate), dirs.cpu(), pose.cpu(), rcfg,
                               chunk=CPU_RAYS)

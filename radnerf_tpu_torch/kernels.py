@@ -10,7 +10,8 @@ header is rebuilt.
 
 Every entry point takes raw device pointers and the CUDA stream, launches
 on that stream without synchronising, and returns `cudaGetLastError()`;
-`launch` raises on a nonzero code and only then counts the launch.
+`launch` raises on a nonzero code and only then counts the launch, as
+counter `launch.<kernel>` of `utils.trace`.
 
 `-fmad=false`: the kernels' float arithmetic must round exactly as their
 plain PyTorch twins do (row ids and occupancy cells are compared for
@@ -29,6 +30,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from .utils import trace
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -82,14 +85,7 @@ KERNELS = {
     "pallas_scatter": ("proto_gather.cu", (_P, _P, _P, _I64, _I64, _P)),
 }
 
-# launches per kernel since the last reset (see reset_launch_counts)
-launch_counts = {name: 0 for name in KERNELS}
 _entry = {}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def nvcc_path() -> str:
@@ -170,4 +166,11 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    launch_counts[name] += 1
+    trace.count(f"launch.{name}")
+
+
+def launches() -> dict:
+    """Launches of each kernel since the last `trace.reset()` (the
+    registry's `launch.<kernel>` counters)."""
+    c = trace.counters()
+    return {k: c.get(f"launch.{k}", 0) for k in KERNELS}

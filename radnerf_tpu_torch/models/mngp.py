@@ -16,6 +16,7 @@ from .. import DEFAULT_DEVICE
 from ..ops.hashgrid import incoherent_impl, init_hashgrid_table
 from ..ops.sh import sh_encode_dir
 from ..ops.trunc_exp import trunc_exp
+from ..utils import trace
 from .mlp import apply_mlp, init_stacked_mlp, slice_stacked
 from .ngp import (
     NGPConfig, encode_positions, field_heads, pack_table, scene_box,
@@ -103,9 +104,10 @@ def mngp_density_expert(params, state, cfg: MNGPConfig, x: torch.Tensor,
     """sigma(x) of expert `ind` (and its geo features if asked);
     `packed` as in _encode."""
     feat = _encode(params, state, cfg, x, ind, impl=impl, packed=packed)
-    h = apply_mlp(slice_stacked(params["geo"], ind), feat,
-                  compute_dtype=cfg.cdtype)
-    sigmas = trunc_exp(h[:, 0])
+    with trace.span("render.mlp"):
+        h = apply_mlp(slice_stacked(params["geo"], ind), feat,
+                      compute_dtype=cfg.cdtype)
+        sigmas = trunc_exp(h[:, 0])
     if return_feat:
         return sigmas, h[:, 1:]
     return sigmas

@@ -21,6 +21,7 @@ from ..ops.hashgrid import (
 from ..ops.hashgrid_brick3 import pack_brick3_table
 from ..ops.sh import sh_encode_dir
 from ..ops.trunc_exp import trunc_exp
+from ..utils import trace
 from .mlp import apply_mlp, init_mlp
 
 
@@ -131,21 +132,24 @@ def encode_positions(table: torch.Tensor, state: dict, cfg: NGPConfig,
     through encode_dispatch (differentiable in the table: each family's
     backward is its table-gradient kernel); `packed` is pack_table's
     table, for callers that encode many batches."""
-    xn = (x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
-    xn = xn.clamp(0.0, 1.0)
-    return encode_dispatch(table, xn, cfg.hash, cfg.cdtype,
-                           impl or cfg.hash_impl, packed=packed)
+    with trace.span("render.encode"):
+        xn = (x - state["xyz_min"]) / (state["xyz_max"] - state["xyz_min"])
+        xn = xn.clamp(0.0, 1.0)
+        return encode_dispatch(table, xn, cfg.hash, cfg.cdtype,
+                               impl or cfg.hash_impl, packed=packed)
 
 
 def field_heads(geo: dict, rgb: dict, feat: torch.Tensor,
                 d: torch.Tensor, cfg: NGPConfig):
     """(sigma (N,), rgb (N, 3) float32) from hash features (N, L*2) and
     directions (N, 3), through one geo and one rgb MLP."""
-    h = apply_mlp(geo, feat, compute_dtype=cfg.cdtype)
-    d_enc = sh_encode_dir(d, cfg.sh_degree).to(cfg.cdtype)
-    rgbs = apply_mlp(rgb, torch.cat([d_enc, h[:, 1:]], dim=-1),
-                     out_act=cfg.rgb_act.lower(), compute_dtype=cfg.cdtype)
-    return trunc_exp(h[:, 0]), rgbs.to(torch.float32)
+    with trace.span("render.mlp"):
+        h = apply_mlp(geo, feat, compute_dtype=cfg.cdtype)
+        d_enc = sh_encode_dir(d, cfg.sh_degree).to(cfg.cdtype)
+        rgbs = apply_mlp(rgb, torch.cat([d_enc, h[:, 1:]], dim=-1),
+                         out_act=cfg.rgb_act.lower(),
+                         compute_dtype=cfg.cdtype)
+        return trunc_exp(h[:, 0]), rgbs.to(torch.float32)
 
 
 def ngp_density(params: dict, state: dict, cfg: NGPConfig, x: torch.Tensor,
@@ -156,8 +160,9 @@ def ngp_density(params: dict, state: dict, cfg: NGPConfig, x: torch.Tensor,
     incoherent_impl), `packed` as in encode_positions."""
     feat = encode_positions(params["hash_table"], state, cfg, x, impl,
                             packed)
-    h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
-    sigmas = trunc_exp(h[:, 0])
+    with trace.span("render.mlp"):
+        h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
+        sigmas = trunc_exp(h[:, 0])
     if return_feat:
         return sigmas, h[:, 1:]
     return sigmas

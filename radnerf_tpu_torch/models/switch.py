@@ -14,6 +14,7 @@ from .. import DEFAULT_DEVICE
 from ..ops.hashgrid import init_hashgrid_table
 from ..ops.sh import sh_encode_dir
 from ..ops.trunc_exp import trunc_exp
+from ..utils import trace
 from .gates import apply_point_gate, init_point_gate
 from .mlp import apply_mlp, init_mlp, init_stacked_mlp
 from .ngp import NGPConfig, encode_positions, init_ngp_state
@@ -64,16 +65,18 @@ def switch_density(
     (apply_point_gate); `packed` is the table packed (pack_table)."""
     feat = encode_positions(params["hash_table"], state, cfg, x,
                             packed=packed)
-    gate, load, top_idx = apply_point_gate(
-        params["gate"], feat, noise, gen, k=cfg.num_topk, train=train,
-        compute_dtype=cfg.cdtype)
-    inter = apply_mlp(params["inter"], feat, compute_dtype=cfg.cdtype)
-    # the reference's bf16 einsum: products summed in float32, the sum
-    # rounded once to the compute dtype
-    post = torch.einsum("nk,knf->nf", gate.to(cfg.cdtype).float(),
-                        inter.float()).to(cfg.cdtype)
-    h = apply_mlp(params["geo"], post, compute_dtype=cfg.cdtype)
-    sigmas = trunc_exp(h[:, 0])
+    with trace.span("render.gate"):
+        gate, load, top_idx = apply_point_gate(
+            params["gate"], feat, noise, gen, k=cfg.num_topk, train=train,
+            compute_dtype=cfg.cdtype)
+    with trace.span("render.mlp"):
+        inter = apply_mlp(params["inter"], feat, compute_dtype=cfg.cdtype)
+        # the reference's bf16 einsum: products summed in float32, the sum
+        # rounded once to the compute dtype
+        post = torch.einsum("nk,knf->nf", gate.to(cfg.cdtype).float(),
+                            inter.float()).to(cfg.cdtype)
+        h = apply_mlp(params["geo"], post, compute_dtype=cfg.cdtype)
+        sigmas = trunc_exp(h[:, 0])
     if return_feat:
         return sigmas, h[:, 1:], {"code": gate, "importance": load,
                                   "indice": top_idx}
@@ -96,7 +99,9 @@ def switch_forward(
     sigmas, h, gate_results = switch_density(
         params, state, cfg, x, noise, gen, train, return_feat=True,
         packed=packed)
-    d_enc = sh_encode_dir(d, cfg.sh_degree).to(cfg.cdtype)
-    rgbs = apply_mlp(params["rgb"], torch.cat([d_enc, h], dim=-1),
-                     out_act=cfg.rgb_act.lower(), compute_dtype=cfg.cdtype)
+    with trace.span("render.mlp"):
+        d_enc = sh_encode_dir(d, cfg.sh_degree).to(cfg.cdtype)
+        rgbs = apply_mlp(params["rgb"], torch.cat([d_enc, h], dim=-1),
+                         out_act=cfg.rgb_act.lower(),
+                         compute_dtype=cfg.cdtype)
     return sigmas, rgbs.to(torch.float32), gate_results

@@ -22,6 +22,7 @@ import math
 import torch
 
 from .. import kernels
+from ..utils import trace
 from .fma import fma32
 
 SQRT3 = math.sqrt(3.0)
@@ -118,10 +119,11 @@ def _occ_mip_cell(
     m2 = torch.frexp(dt * G).exponent.clamp(0, C - 1)
     mip = torch.maximum(m1, m2)
     # min(2^(mip-1), scale) from a table: exact powers of two
-    bounds = torch.tensor(
-        [min(2.0 ** (m - 1), cfg.scale) for m in range(C)],
-        dtype=torch.float32, device=xyz.device,
-    )
+    with trace.span("sync.occ_bounds"):
+        bounds = torch.tensor(
+            [min(2.0 ** (m - 1), cfg.scale) for m in range(C)],
+            dtype=torch.float32, device=xyz.device,
+        )
     mip_bound = bounds[mip.long()]
     n = torch.clamp(
         0.5 * (xyz / mip_bound[..., None] + 1.0) * G, 0.0, G - 1.0
@@ -221,7 +223,9 @@ def _compact_flat_from_keep(t, dt, keep, cfg: MarchConfig,
     n_r = within[:, -1].clamp_max(cfg.samples_per_ray)
     total = n_r.sum(dtype=torch.int32)
     # float ratio, as the reference (no int overflow of n_r * B)
-    ratio = _f32(float(B)).to(dev) / total.clamp_min(1).to(torch.float32)
+    with trace.span("sync.march_ratio"):
+        ratio = _f32(float(B)).to(dev) / total.clamp_min(1).to(
+            torch.float32)
     floor_cap = torch.floor(n_r.to(torch.float32) * ratio).to(torch.int32)
     cap = torch.where(
         total <= B, n_r, torch.minimum(n_r, floor_cap.clamp_min(1))
@@ -263,7 +267,8 @@ def _compact_flat_from_keep(t, dt, keep, cfg: MarchConfig,
     ts = torch.where(valid, t_sorted[:, :Sc].reshape(-1)[slot], 0.0)
     if cfg.exp_step_factor == 0.0:
         # constant-dt lattice: no per-sample step-size gather needed
-        deltas = torch.where(valid, _f32(cfg.dt_min).to(dev), 0.0)
+        with trace.span("sync.march_dt"):
+            deltas = torch.where(valid, _f32(cfg.dt_min).to(dev), 0.0)
     else:
         deltas = torch.where(valid, dt.reshape(-1)[flat.long()], 0.0)
     return {

@@ -175,7 +175,18 @@ def get_parser() -> argparse.ArgumentParser:
                           'reads no orbax directory')
     dev.add_argument('--profile_steps', type=int, default=0,
                      help='capture a profiler trace for this many steps '
-                          '(starting at step 10) into the log dir')
+                          '(starting at step 10) into the log dir '
+                          '(trace/trace.json). It carries the program\'s '
+                          'spans (utils/trace.py) as user_annotation '
+                          'events: train.step, train.grid_update, '
+                          'train.batch, step.slice, step.backward, '
+                          'step.allreduce, step.adam, render.gate, '
+                          'render.march, render.encode, render.mlp, '
+                          'render.composite, loss, test.chunk, '
+                          'test.iteration and sync.<site> around each '
+                          'wait on the device; while it records, every '
+                          'host sync counts as counter `sync`, and each '
+                          'kernel launch always counts as `launch.<kernel>`')
     dev.add_argument('--host_sampling', action='store_true', default=False,
                      help='accepted and has no effect, as in the JAX '
                           'package, which declares it and reads it nowhere: '

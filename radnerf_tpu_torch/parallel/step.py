@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
 from .mesh import Mesh
 
 
@@ -79,8 +80,10 @@ def microbatched_value_and_grad(loss3, microbatch: int):
         loss_sum, aux_sum, grad_sum = 0.0, None, None
         for i in range(microbatch):
             part = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            loss, aux = loss3(params, part, *args)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with trace.span("step.slice"):
+                loss, aux = loss3(params, part, *args)
+            with trace.span("step.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves, grads)]
             aux = {k: v.detach().to(torch.float32) for k, v in aux.items()}
@@ -145,7 +148,9 @@ def pmean_step_values(loss, aux: dict, grads: list, mesh: Mesh | None):
     if mesh is None or mesh.size == 1:
         return loss, aux, grads
     fkeys = [k for k, v in aux.items() if torch.is_floating_point(v)]
-    vals = all_reduce_mean([loss, *(aux[k] for k in fkeys), *grads], mesh)
+    with trace.span("step.allreduce"):
+        vals = all_reduce_mean([loss, *(aux[k] for k in fkeys), *grads],
+                               mesh)
     return (vals[0], {**aux, **dict(zip(fkeys, vals[1:1 + len(fkeys)]))},
             vals[1 + len(fkeys):])
 
@@ -170,7 +175,8 @@ def make_train_step(loss_fn, optimizer: torch.optim.Optimizer,
                                              mesh)
         for p, g in zip(tree_leaves(params), grads):
             p.grad = g
-        optimizer.step()
+        with trace.span("step.adam"):
+            optimizer.step()
         return loss, aux
 
     return step

@@ -40,6 +40,7 @@ from ..ops.marching import (
 )
 from ..ops.sh import sh_encode_dir
 from ..ops.trunc_exp import trunc_exp
+from ..utils import trace
 from .render import (
     NEAR_DISTANCE, RenderConfig, background_color, render_test,
     render_train,
@@ -70,39 +71,43 @@ def _expert_samples_union_flat(
     `gen` draws the random backgrounds (rcfg.random_bg)."""
     K = cfg.n_experts
     dev = rays_o.device
-    center, half = scene_center_half(state)
-    # the march is not differentiated: its ts and deltas are the
-    # reference's stop_gradient outputs, so rays that carry a gradient
-    # (--optimize_ext) reach the loss through the positions, the SH
-    # directions and the gate only
-    ro, rd = rays_o.detach(), rays_d.detach()
-    t1, t2 = scene_near_far(ro, rd, center, half, NEAR_DISTANCE)
-    mcfg = rcfg.march(cfg)
-    d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
-    m, member = march_rays_union_flat(
-        ro, rd, t1, t2, state["occ"], mcfg, noise,
-        budget_per_ray=max(1, round(
-            rcfg.budget_per_ray * (rcfg.union_budget_factor or K))),
-        cap_scale=K,   # the per-ray cap stays expert-equivalent
-    )
-    rid = m["ray_id"].long()
-    xyz = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])   # (B, 3)
+    with trace.span("render.march"):
+        center, half = scene_center_half(state)
+        # the march is not differentiated: its ts and deltas are the
+        # reference's stop_gradient outputs, so rays that carry a gradient
+        # (--optimize_ext) reach the loss through the positions, the SH
+        # directions and the gate only
+        ro, rd = rays_o.detach(), rays_d.detach()
+        t1, t2 = scene_near_far(ro, rd, center, half, NEAR_DISTANCE)
+        mcfg = rcfg.march(cfg)
+        m, member = march_rays_union_flat(
+            ro, rd, t1, t2, state["occ"], mcfg, noise,
+            budget_per_ray=max(1, round(
+                rcfg.budget_per_ray * (rcfg.union_budget_factor or K))),
+            cap_scale=K,   # the per-ray cap stays expert-equivalent
+        )
+        rid = m["ray_id"].long()
+        xyz = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])  # (B, 3)
 
-    feat = _encode(params, state, cfg, xyz)                   # ONCE
-    h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
-    sigmas = torch.where(member, trunc_exp(h[..., 0]), 0.0)
-    rgb_in = torch.cat(
-        [d_enc_ray[rid][None].expand(K, -1, -1), h[..., 1:]], dim=-1
-    )
-    rgbs = apply_mlp(
-        params["rgb"], rgb_in, out_act=cfg.rgb_act.lower(),
-        compute_dtype=cfg.cdtype,
-    ).to(torch.float32)                                       # (K, B, 3)
-    out = composite_train_flat(
-        sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"], m["offsets"],
-        m["cap"], member, T_threshold=rcfg.T_threshold,
-    )
-    bgs = torch.stack([background_color(rcfg, gen, dev) for _ in range(K)])
+    feat = _encode(params, state, cfg, xyz)                      # ONCE
+    with trace.span("render.mlp"):
+        h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
+        sigmas = torch.where(member, trunc_exp(h[..., 0]), 0.0)
+        d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
+        rgb_in = torch.cat(
+            [d_enc_ray[rid][None].expand(K, -1, -1), h[..., 1:]], dim=-1
+        )
+        rgbs = apply_mlp(
+            params["rgb"], rgb_in, out_act=cfg.rgb_act.lower(),
+            compute_dtype=cfg.cdtype,
+        ).to(torch.float32)                                   # (K, B, 3)
+    with trace.span("render.composite"):
+        out = composite_train_flat(
+            sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"], m["offsets"],
+            m["cap"], member, T_threshold=rcfg.T_threshold,
+        )
+        bgs = torch.stack([background_color(rcfg, gen, dev)
+                           for _ in range(K)])
     B = m["ts"].shape[0]
 
     def rep(a):  # shared union arrays -> per-expert (K, ...) interface
@@ -137,55 +142,61 @@ def _expert_samples_per_expert(
     compositing, and one background per expert."""
     K = cfg.n_experts
     dev = rays_o.device
-    center, half = scene_center_half(state)
-    ro, rd = rays_o.detach(), rays_d.detach()      # as in the union render
-    t1, t2 = scene_near_far(ro, rd, center, half, NEAR_DISTANCE)
-    mcfg = rcfg.march(cfg)
-    dense = rcfg.layout == "dense"
-    d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
-    if dense:
-        m = _stack_results([
-            march_rays_train(ro, rd, t1, t2, state["occ"][k], mcfg,
-                             noises[k]) for k in range(K)])   # (K, N, S)
-        N, S = m["ts"].shape[1:]
-        P = N * S
-        xyz = fma32(m["ts"][..., None], rays_d[None, :, None, :],
-                    rays_o[None, :, None, :]).reshape(-1, 3)  # (K*N*S, 3)
-        d_enc = d_enc_ray[None, :, None, :].expand(
-            K, N, S, d_enc_ray.shape[-1]).reshape(K, P, -1)
-    else:
-        m = _stack_results([
-            march_rays_train_flat(ro, rd, t1, t2, state["occ"][k], mcfg,
-                                  noises[k],
-                                  budget_per_ray=rcfg.budget_per_ray)
-            for k in range(K)])                             # (K, B) / (K, N)
-        rid = m["ray_id"].reshape(-1).long()
-        xyz = fma32(m["ts"].reshape(-1)[:, None], rays_d[rid], rays_o[rid])
-        P = m["ts"].shape[1]                                # (K*B, 3)
-        d_enc = d_enc_ray[rid].reshape(K, P, -1)
+    with trace.span("render.march"):
+        center, half = scene_center_half(state)
+        ro, rd = rays_o.detach(), rays_d.detach()  # as in the union render
+        t1, t2 = scene_near_far(ro, rd, center, half, NEAR_DISTANCE)
+        mcfg = rcfg.march(cfg)
+        dense = rcfg.layout == "dense"
+        d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
+        if dense:
+            m = _stack_results([
+                march_rays_train(ro, rd, t1, t2, state["occ"][k], mcfg,
+                                 noises[k]) for k in range(K)])  # (K, N, S)
+            N, S = m["ts"].shape[1:]
+            P = N * S
+            xyz = fma32(m["ts"][..., None], rays_d[None, :, None, :],
+                        rays_o[None, :, None, :]).reshape(-1, 3)
+            d_enc = d_enc_ray[None, :, None, :].expand(
+                K, N, S, d_enc_ray.shape[-1]).reshape(K, P, -1)
+        else:
+            m = _stack_results([
+                march_rays_train_flat(ro, rd, t1, t2, state["occ"][k], mcfg,
+                                      noises[k],
+                                      budget_per_ray=rcfg.budget_per_ray)
+                for k in range(K)])                     # (K, B) / (K, N)
+            rid = m["ray_id"].reshape(-1).long()
+            xyz = fma32(m["ts"].reshape(-1)[:, None], rays_d[rid],
+                        rays_o[rid])                    # (K*B, 3)
+            P = m["ts"].shape[1]
+            d_enc = d_enc_ray[rid].reshape(K, P, -1)
 
-    feat = _encode(params, state, cfg, xyz).reshape(K, P, -1)   # ONCE
-    h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
-    rgbs = apply_mlp(
-        params["rgb"], torch.cat([d_enc, h[..., 1:]], dim=-1),
-        out_act=cfg.rgb_act.lower(), compute_dtype=cfg.cdtype,
-    ).to(torch.float32)                                         # (K, P, 3)
-    sigmas = trunc_exp(h[..., 0])
-    if dense:
-        out = composite_train(
-            sigmas.reshape(K, N, S), rgbs.reshape(K, N, S, 3), m["deltas"],
-            m["ts"], m["valid"], T_threshold=rcfg.T_threshold)
-        extra = {"rm_samples": m["n_samples"].sum()}
-    else:
-        out = _stack_results([
-            composite_train_flat(
-                sigmas[k], rgbs[k], m["deltas"][k], m["ts"][k],
-                m["ray_id"][k], m["offsets"][k], m["cap"][k], m["valid"][k],
+    feat = _encode(params, state, cfg, xyz).reshape(K, P, -1)    # ONCE
+    with trace.span("render.mlp"):
+        h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
+        rgbs = apply_mlp(
+            params["rgb"], torch.cat([d_enc, h[..., 1:]], dim=-1),
+            out_act=cfg.rgb_act.lower(), compute_dtype=cfg.cdtype,
+        ).to(torch.float32)                                     # (K, P, 3)
+        sigmas = trunc_exp(h[..., 0])
+    with trace.span("render.composite"):
+        if dense:
+            out = composite_train(
+                sigmas.reshape(K, N, S), rgbs.reshape(K, N, S, 3),
+                m["deltas"], m["ts"], m["valid"],
                 T_threshold=rcfg.T_threshold)
-            for k in range(K)])
-        extra = {k: m[k] for k in ("ray_id", "offsets", "cap")}
-        extra["rm_samples"] = m["total"].sum()
-    bgs = torch.stack([background_color(rcfg, gen, dev) for _ in range(K)])
+            extra = {"rm_samples": m["n_samples"].sum()}
+        else:
+            out = _stack_results([
+                composite_train_flat(
+                    sigmas[k], rgbs[k], m["deltas"][k], m["ts"][k],
+                    m["ray_id"][k], m["offsets"][k], m["cap"][k],
+                    m["valid"][k], T_threshold=rcfg.T_threshold)
+                for k in range(K)])
+            extra = {k: m[k] for k in ("ray_id", "offsets", "cap")}
+            extra["rm_samples"] = m["total"].sum()
+        bgs = torch.stack([background_color(rcfg, gen, dev)
+                           for _ in range(K)])
     return {
         "rgb": out["rgb"] + bgs[:, None, :] * (1.0 - out["opacity"][..., None]),
         "depth": out["depth"],
@@ -227,10 +238,11 @@ def ml_render_train(
     and total_samples."""
     K, N = cfg.n_experts, rays_o.shape[0]
     dev = rays_o.device
-    gate, importance, _ = apply_ray_gate(
-        gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
-        compute_dtype=cfg.cdtype,
-    )
+    with trace.span("render.gate"):
+        gate, importance, _ = apply_ray_gate(
+            gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
+            compute_dtype=cfg.cdtype,
+        )
     union = (cfg.shared_encoder and rcfg.union_sampling
              and rcfg.layout == "flat")
     if noise is None:
@@ -283,12 +295,14 @@ def _ml_test_union_flat(
     total_samples, and the loop's iteration count."""
     K, N = cfg.n_experts, rays_o.shape[0]
     dev = rays_o.device
-    center, half = scene_center_half(state)
-    t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
-    mcfg = rcfg.march(cfg)
-    occ_union = state["occ"].any(dim=0).contiguous()
-    d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
-    packed = pack_for_encode(params, cfg)               # once per call
+    with trace.span("render.march"):
+        center, half = scene_center_half(state)
+        t1, t2 = scene_near_far(rays_o, rays_d, center, half, NEAR_DISTANCE)
+        mcfg = rcfg.march(cfg)
+        occ_union = state["occ"].any(dim=0).contiguous()
+    with trace.span("render.encode"):
+        d_enc_ray = sh_encode_dir(rays_d, cfg.sh_degree).to(cfg.cdtype)
+        packed = pack_for_encode(params, cfg)           # once per call
     # per-ray samples_done retirement bounds real progress; max_iters is
     # the reference's safety valve
     max_iters = min(
@@ -309,41 +323,48 @@ def _ml_test_union_flat(
     i = 0
     while i < max_iters:
         union_alive = acc["alive"].any(dim=0)
-        if not bool((union_alive & (cursor < t2)).any()):
+        with trace.span("sync.test_alive"):
+            more = bool((union_alive & (cursor < t2)).any())
+        if not more:
             break
-        m = march_rays_test_flat(
-            rays_o, rays_d, cursor, t2, occ_union, mcfg, union_alive,
-            k_block=rcfg.test_k_block, cap_per_ray=rcfg.test_block_samples,
-            budget_per_ray=rcfg.test_budget_per_ray,
-        )
-        rid = m["ray_id"].long()
-        xyz = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
-        member = torch.stack([
-            occupancy_lookup(xyz, m["deltas"], state["occ"][k], mcfg)
-            for k in range(K)
-        ]) & m["valid"][None, :]
+        with trace.span("test.iteration"):
+            with trace.span("render.march"):
+                m = march_rays_test_flat(
+                    rays_o, rays_d, cursor, t2, occ_union, mcfg, union_alive,
+                    k_block=rcfg.test_k_block,
+                    cap_per_ray=rcfg.test_block_samples,
+                    budget_per_ray=rcfg.test_budget_per_ray,
+                )
+                rid = m["ray_id"].long()
+                xyz = fma32(m["ts"][:, None], rays_d[rid], rays_o[rid])
+                member = torch.stack([
+                    occupancy_lookup(xyz, m["deltas"], state["occ"][k], mcfg)
+                    for k in range(K)
+                ]) & m["valid"][None, :]
 
-        feat = _encode(params, state, cfg, xyz, packed=packed)  # ONCE
-        h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
-        sigmas = torch.where(member, trunc_exp(h[..., 0]), 0.0)
-        rgb_in = torch.cat(
-            [d_enc_ray[rid][None].expand(K, -1, -1), h[..., 1:]], dim=-1
-        )
-        rgbs = apply_mlp(
-            params["rgb"], rgb_in, out_act=cfg.rgb_act.lower(),
-            compute_dtype=cfg.cdtype,
-        ).to(torch.float32)                                  # (K, B, 3)
+            feat = _encode(params, state, cfg, xyz, packed=packed)  # ONCE
+            with trace.span("render.mlp"):
+                h = apply_mlp(params["geo"], feat, compute_dtype=cfg.cdtype)
+                sigmas = torch.where(member, trunc_exp(h[..., 0]), 0.0)
+                rgb_in = torch.cat(
+                    [d_enc_ray[rid][None].expand(K, -1, -1), h[..., 1:]],
+                    dim=-1)
+                rgbs = apply_mlp(
+                    params["rgb"], rgb_in, out_act=cfg.rgb_act.lower(),
+                    compute_dtype=cfg.cdtype,
+                ).to(torch.float32)                          # (K, B, 3)
 
-        acc = composite_test_flat(
-            sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"], m["offsets"],
-            m["cap"], member, acc, rcfg.T_threshold,
-        )
-        samples_done = samples_done + m["consumed"]
-        acc["alive"] = acc["alive"] & (
-            samples_done < rcfg.max_samples)[None, :]
-        cursor = m["new_cursor"]
-        total_samples = total_samples + m["consumed"].sum()
-        i += 1
+            with trace.span("render.composite"):
+                acc = composite_test_flat(
+                    sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"],
+                    m["offsets"], m["cap"], member, acc, rcfg.T_threshold,
+                )
+                samples_done = samples_done + m["consumed"]
+                acc["alive"] = acc["alive"] & (
+                    samples_done < rcfg.max_samples)[None, :]
+                cursor = m["new_cursor"]
+                total_samples = total_samples + m["consumed"].sum()
+            i += 1
 
     rgb_bg = background_color(rcfg, None, dev)
     return {
@@ -375,10 +396,11 @@ def ml_render_test(
     3), total_samples, and iterations (the loops' count, summed over the
     experts' loops)."""
     with torch.no_grad():
-        gate, importance, _ = apply_ray_gate(
-            gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
-            compute_dtype=cfg.cdtype,
-        )
+        with trace.span("render.gate"):
+            gate, importance, _ = apply_ray_gate(
+                gate_params, _gate_input(rays_o, rays_d, imgs_d, gate_type),
+                compute_dtype=cfg.cdtype,
+            )
         if (cfg.shared_encoder and rcfg.union_sampling
                 and rcfg.test_layout == "flat"):
             res = _ml_test_union_flat(params, state, cfg, rays_o, rays_d,
@@ -454,31 +476,33 @@ def render_rays_chunked(
     rgb, depth, opacity = [], [], []
     total_samples, iterations = 0, 0
     for c0 in range(0, n_pix, chunk):
-        c1 = min(c0 + chunk, n_pix)
-        dirs = directions[c0:c1]
-        pad = chunk - (c1 - c0)
-        if pad:
-            dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
-        poses_c = pose.expand(chunk, 3, 4)
-        rays_o, rays_d = get_rays(dirs, poses_c)
-        rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
-        if render is not None:
-            out = render(rays_o, rays_d)
-            d = out["depth"]
-        elif gate_params is None:
-            out = render_test(params, state, cfg, rays_o, rays_d, rcfg)
-            d = out["depth"]
-        else:
-            imgs_d = get_rays(mean_dir.expand(chunk, 3), poses_c)[1]
-            out = ml_render_test(params, state, cfg, gate_params, rays_o,
-                                 rays_d, imgs_d, rcfg, gate_type)
-            d = (out["depth"] * out["gating_code"]).sum(dim=1)
-        n = c1 - c0
-        rgb.append(out["rgb"][:n])
-        depth.append(d[:n])
-        opacity.append(out["opacity"][:n])
-        total_samples += int(out["total_samples"])
-        iterations += out["iterations"]
+        with trace.span("test.chunk"):
+            c1 = min(c0 + chunk, n_pix)
+            dirs = directions[c0:c1]
+            pad = chunk - (c1 - c0)
+            if pad:
+                dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
+            poses_c = pose.expand(chunk, 3, 4)
+            rays_o, rays_d = get_rays(dirs, poses_c)
+            rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+            if render is not None:
+                out = render(rays_o, rays_d)
+                d = out["depth"]
+            elif gate_params is None:
+                out = render_test(params, state, cfg, rays_o, rays_d, rcfg)
+                d = out["depth"]
+            else:
+                imgs_d = get_rays(mean_dir.expand(chunk, 3), poses_c)[1]
+                out = ml_render_test(params, state, cfg, gate_params, rays_o,
+                                     rays_d, imgs_d, rcfg, gate_type)
+                d = (out["depth"] * out["gating_code"]).sum(dim=1)
+            n = c1 - c0
+            rgb.append(out["rgb"][:n])
+            depth.append(d[:n])
+            opacity.append(out["opacity"][:n])
+            with trace.span("sync.total_samples"):
+                total_samples += int(out["total_samples"])
+            iterations += out["iterations"]
     return {
         "rgb": torch.cat(rgb),
         "depth": torch.cat(depth),

@@ -31,6 +31,7 @@ from ..ops.marching import (
     MarchConfig, march_rays_test_block, march_rays_test_flat,
     march_rays_train, march_rays_train_flat,
 )
+from ..utils import trace
 
 MAX_SAMPLES = 1024
 NEAR_DISTANCE = 0.01
@@ -127,51 +128,57 @@ def render_train(
     dev = rays_o.device
     if noise is None:
         noise = torch.rand(rays_o.shape[0], generator=gen, device=dev)
-    center, half = scene_center_half(state)
-    # the march is not differentiated (the reference's stop_gradient
-    # outputs): rays that carry a gradient reach the loss through the
-    # sample positions and directions only
-    ro, rd = rays_o.detach(), rays_d.detach()
-    t1, t2 = scene_near_far(ro, rd, center, half, NEAR_DISTANCE)
-    mcfg = rcfg.march(cfg)
-    if rcfg.layout == "dense":
-        m = march_rays_train(ro, rd, t1, t2, state["occ"], mcfg, noise)
-        N, S = m["ts"].shape
-        xyz = fma32(m["ts"][..., None], rays_d[:, None, :],
-                    rays_o[:, None, :])
-        dirs = rays_d[:, None, :].expand(N, S, 3)
-        sigmas, rgbs, extras = _fwd_out(forward_fn(xyz.reshape(-1, 3),
-                                                   dirs.reshape(-1, 3)))
-        out = composite_train(
-            sigmas.reshape(N, S), rgbs.reshape(N, S, 3), m["deltas"],
-            m["ts"], m["valid"], rcfg.T_threshold)
-        out.update(
-            ts=m["ts"], deltas=m["deltas"], valid=m["valid"],
-            n_samples=m["n_samples"], rm_samples=m["n_samples"].sum(),
-            total_samples=out["vr_samples"].sum(),
-        )
-    else:
-        m = march_rays_train_flat(ro, rd, t1, t2, state["occ"], mcfg,
-                                  noise, budget_per_ray=rcfg.budget_per_ray)
-        rid = m["ray_id"].long()
-        d = rays_d[rid]
-        xyz = fma32(m["ts"][:, None], d, rays_o[rid])
-        if forward_takes_ray_id:
-            sigmas, rgbs, extras = _fwd_out(forward_fn(xyz, d,
-                                                       ray_id=m["ray_id"]))
+    dense = rcfg.layout == "dense"
+    with trace.span("render.march"):
+        center, half = scene_center_half(state)
+        # the march is not differentiated (the reference's stop_gradient
+        # outputs): rays that carry a gradient reach the loss through the
+        # sample positions and directions only
+        ro, rd = rays_o.detach(), rays_d.detach()
+        t1, t2 = scene_near_far(ro, rd, center, half, NEAR_DISTANCE)
+        mcfg = rcfg.march(cfg)
+        if dense:
+            m = march_rays_train(ro, rd, t1, t2, state["occ"], mcfg, noise)
+            N, S = m["ts"].shape
+            xyz = fma32(m["ts"][..., None], rays_d[:, None, :],
+                        rays_o[:, None, :]).reshape(-1, 3)
+            d = rays_d[:, None, :].expand(N, S, 3).reshape(-1, 3)
         else:
-            sigmas, rgbs, extras = _fwd_out(forward_fn(xyz, d))
-        out = composite_train_flat(
-            sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"], m["offsets"],
-            m["cap"], m["valid"], T_threshold=rcfg.T_threshold,
-        )
-        out.update(
-            ts=m["ts"], deltas=m["deltas"], valid=m["valid"],
-            ray_id=m["ray_id"], offsets=m["offsets"], cap=m["cap"],
-            n_samples=m["n_samples"], rm_samples=m["total"],
-            budget_util=m["total"].to(torch.float32) / m["ts"].shape[0],
-            total_samples=out["vr_samples"].sum(),
-        )
+            m = march_rays_train_flat(ro, rd, t1, t2, state["occ"], mcfg,
+                                      noise,
+                                      budget_per_ray=rcfg.budget_per_ray)
+            rid = m["ray_id"].long()
+            d = rays_d[rid]
+            xyz = fma32(m["ts"][:, None], d, rays_o[rid])
+    if forward_takes_ray_id and not dense:
+        sigmas, rgbs, extras = _fwd_out(forward_fn(xyz, d,
+                                                   ray_id=m["ray_id"]))
+    else:
+        sigmas, rgbs, extras = _fwd_out(forward_fn(xyz, d))
+    with trace.span("render.composite"):
+        if dense:
+            out = composite_train(
+                sigmas.reshape(N, S), rgbs.reshape(N, S, 3), m["deltas"],
+                m["ts"], m["valid"], rcfg.T_threshold)
+            out.update(
+                ts=m["ts"], deltas=m["deltas"], valid=m["valid"],
+                n_samples=m["n_samples"], rm_samples=m["n_samples"].sum(),
+                total_samples=out["vr_samples"].sum(),
+            )
+        else:
+            out = composite_train_flat(
+                sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"],
+                m["offsets"], m["cap"], m["valid"],
+                T_threshold=rcfg.T_threshold,
+            )
+            out.update(
+                ts=m["ts"], deltas=m["deltas"], valid=m["valid"],
+                ray_id=m["ray_id"], offsets=m["offsets"], cap=m["cap"],
+                n_samples=m["n_samples"], rm_samples=m["total"],
+                budget_util=m["total"].to(torch.float32)
+                / m["ts"].shape[0],
+                total_samples=out["vr_samples"].sum(),
+            )
     rgb_bg = background_color(rcfg, gen, dev)
     out["rgb"] = out["rgb"] + rgb_bg * (1.0 - out["opacity"])[:, None]
     if extras is not None:
@@ -262,47 +269,57 @@ def render_test(
     total_samples = carry["total_samples"]
     i = 0
     while i < max_iters:
-        if not bool((acc["alive"] & (cursor < t2)).any()):
+        with trace.span("sync.test_alive"):
+            more = bool((acc["alive"] & (cursor < t2)).any())
+        if not more:
             break
-        if dense:
-            blk = march_rays_test_block(
-                rays_o, rays_d, cursor, t2, occ, mcfg, n_samples=S,
-                k_block=rcfg.test_k_block)
-            xyz = fma32(blk["ts"][..., None], rays_d[:, None, :],
-                        rays_o[:, None, :])
-            dirs = rays_d[:, None, :].expand(N, S, 3)
-            sigmas, rgbs, _ = _fwd_out(forward_fn(xyz.reshape(-1, 3),
-                                                  dirs.reshape(-1, 3)))
-            total_samples = total_samples + torch.where(
-                acc["alive"], blk["n_eff"], 0).sum()
-            acc = composite_test_block(
-                sigmas.reshape(N, S), rgbs.reshape(N, S, 3), blk["deltas"],
-                blk["ts"], blk["valid"], acc, rcfg.T_threshold)
-            cursor = blk["new_cursor"]
-        else:
-            m = march_rays_test_flat(
-                rays_o, rays_d, cursor, t2, occ, mcfg, acc["alive"],
-                k_block=rcfg.test_k_block, cap_per_ray=S,
-                budget_per_ray=rcfg.test_budget_per_ray,
-            )
-            rid = m["ray_id"].long()
-            d = rays_d[rid]
-            xyz = fma32(m["ts"][:, None], d, rays_o[rid])
-            if forward_takes_ray_id:
-                sigmas, rgbs, _ = _fwd_out(forward_fn(xyz, d,
-                                                      ray_id=m["ray_id"]))
+        with trace.span("test.iteration"):
+            if dense:
+                with trace.span("render.march"):
+                    blk = march_rays_test_block(
+                        rays_o, rays_d, cursor, t2, occ, mcfg, n_samples=S,
+                        k_block=rcfg.test_k_block)
+                    xyz = fma32(blk["ts"][..., None], rays_d[:, None, :],
+                                rays_o[:, None, :])
+                    dirs = rays_d[:, None, :].expand(N, S, 3)
+                sigmas, rgbs, _ = _fwd_out(forward_fn(xyz.reshape(-1, 3),
+                                                      dirs.reshape(-1, 3)))
+                with trace.span("render.composite"):
+                    total_samples = total_samples + torch.where(
+                        acc["alive"], blk["n_eff"], 0).sum()
+                    acc = composite_test_block(
+                        sigmas.reshape(N, S), rgbs.reshape(N, S, 3),
+                        blk["deltas"], blk["ts"], blk["valid"], acc,
+                        rcfg.T_threshold)
+                    cursor = blk["new_cursor"]
             else:
-                sigmas, rgbs, _ = _fwd_out(forward_fn(xyz, d))
-            acc = composite_test_flat(
-                sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"],
-                m["offsets"], m["cap"], m["valid"], acc, rcfg.T_threshold,
-            )
-            samples_done = carry["samples_done"] + m["consumed"]
-            carry["samples_done"] = samples_done
-            acc["alive"] = acc["alive"] & (samples_done < rcfg.max_samples)
-            cursor = m["new_cursor"]
-            total_samples = total_samples + m["consumed"].sum()
-        i += 1
+                with trace.span("render.march"):
+                    m = march_rays_test_flat(
+                        rays_o, rays_d, cursor, t2, occ, mcfg, acc["alive"],
+                        k_block=rcfg.test_k_block, cap_per_ray=S,
+                        budget_per_ray=rcfg.test_budget_per_ray,
+                    )
+                    rid = m["ray_id"].long()
+                    d = rays_d[rid]
+                    xyz = fma32(m["ts"][:, None], d, rays_o[rid])
+                if forward_takes_ray_id:
+                    sigmas, rgbs, _ = _fwd_out(forward_fn(
+                        xyz, d, ray_id=m["ray_id"]))
+                else:
+                    sigmas, rgbs, _ = _fwd_out(forward_fn(xyz, d))
+                with trace.span("render.composite"):
+                    acc = composite_test_flat(
+                        sigmas, rgbs, m["deltas"], m["ts"], m["ray_id"],
+                        m["offsets"], m["cap"], m["valid"], acc,
+                        rcfg.T_threshold,
+                    )
+                    samples_done = carry["samples_done"] + m["consumed"]
+                    carry["samples_done"] = samples_done
+                    acc["alive"] = acc["alive"] & (
+                        samples_done < rcfg.max_samples)
+                    cursor = m["new_cursor"]
+                    total_samples = total_samples + m["consumed"].sum()
+            i += 1
     rgb_bg = background_color(rcfg, None, dev)
     out = {
         "rgb": acc["rgb"] + rgb_bg * (1.0 - acc["opacity"])[:, None],

@@ -37,6 +37,7 @@ from ..models.switch import (
 from ..render.block_render import block_render_test, block_render_train
 from ..render.ml_render import get_rays, render_rays_chunked
 from ..render.switch_render import switch_render_test, switch_render_train
+from ..utils import trace
 from .trainer import NeRFSystem, TrainConfig, budget_util
 
 
@@ -92,14 +93,18 @@ def other_loss_fn(kind: str, anchors: torch.Tensor | None,
                 noise=batch["noise"], gate_noise=gate_noise, gen=gen)
             out["gating_importance"] = out["gating_importance"].to(
                 torch.float32)
-            ld = nerf_loss(out, target, lambda_opacity=tcfg.opacity_loss_w,
-                           lambda_cv_importance=tcfg.cv_loss_w)
+            with trace.span("loss"):
+                ld = nerf_loss(out, target,
+                               lambda_opacity=tcfg.opacity_loss_w,
+                               lambda_cv_importance=tcfg.cv_loss_w)
         else:
             out = block_render_train(
                 params, model_state, cfg, rays_o, rays_d,
                 spatial_gating(rays_o, anchors, overlap_ratio), rcfg,
                 noise=batch["noise"], gen=gen)
-            ld = nerf_loss(out, target, lambda_opacity=tcfg.opacity_loss_w)
+            with trace.span("loss"):
+                ld = nerf_loss(out, target,
+                               lambda_opacity=tcfg.opacity_loss_w)
         aux = {
             "psnr": psnr_fn(out["rgb"], target["rgb"]),
             "rm_samples": out["rm_samples"].to(torch.float32),

@@ -76,6 +76,7 @@ from ..render.render import (
 from ..utils.ckpt import (
     AsyncCkptWriter, load_ckpt, load_weights_into, save_ckpt, slim_ckpt,
 )
+from ..utils import trace
 from ..utils.logging import MetricWriter, init_global_logger
 
 MAX_SAMPLES = 1024
@@ -240,7 +241,8 @@ def loss_fn(bundle: dict, model_state: dict, batch: dict, data: dict,
     else:
         out = render_train(bundle["model"], model_state, cfg, rays_o, rays_d,
                            rcfg, noise=batch["noise"], gen=gen)
-    ld = nerf_loss(out, target, **weights)
+    with trace.span("loss"):
+        ld = nerf_loss(out, target, **weights)
     aux = {
         "psnr": psnr_fn(out["rgb"], target["rgb"]),
         "rm_samples": out["rm_samples"].to(torch.float32),
@@ -378,16 +380,20 @@ class Trainer:
         adaptive = self.tcfg.adaptive_budget and self.rcfg.layout == "flat"
         for _ in range(n_steps):
             step = self.global_step
-            if step % UPDATE_INTERVAL == 0:
-                self.update_grid(warmup=step < self.tcfg.warmup_steps)
-                if adaptive and step >= self.tcfg.warmup_steps:
-                    self.maybe_adapt_budget()
-            batch = sample_batch(self.gen, self.data, self.tcfg.batch_size,
-                                 self.mesh)
-            loss, aux = self.train_step(batch)
-            if adaptive and step % UPDATE_INTERVAL == UPDATE_INTERVAL - 1:
-                # one host read, right before the next grid update
-                self.last_budget_util = float(aux["budget_util"])
+            with trace.span("train.step"):
+                if step % UPDATE_INTERVAL == 0:
+                    with trace.span("train.grid_update"):
+                        self.update_grid(warmup=step < self.tcfg.warmup_steps)
+                    if adaptive and step >= self.tcfg.warmup_steps:
+                        self.maybe_adapt_budget()
+                with trace.span("train.batch"):
+                    batch = sample_batch(self.gen, self.data,
+                                         self.tcfg.batch_size, self.mesh)
+                loss, aux = self.train_step(batch)
+                if adaptive and step % UPDATE_INTERVAL == UPDATE_INTERVAL - 1:
+                    # one host read, right before the next grid update
+                    with trace.span("sync.budget_util"):
+                        self.last_budget_util = float(aux["budget_util"])
             if on_step is not None:
                 on_step(step, loss, aux)
 

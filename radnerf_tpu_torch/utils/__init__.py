@@ -1,1 +1,2 @@
-"""Logging and checkpoints (twin of radnerf_tpu/utils/)."""
+"""Logging and checkpoints (twin of radnerf_tpu/utils/), and the
+program's spans and counters (trace.py)."""

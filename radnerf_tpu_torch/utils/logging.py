@@ -4,7 +4,9 @@ radnerf_tpu/utils/logging.py).
 Metric names match the reference's (`train/loss`, `train/psnr`,
 `train/rays_per_s`, `test/psnr`, `test/ssim`, `test/lpips_vgg`, `lr`).
 Every scalar goes to `metrics.jsonl` in the log dir, and to TensorBoard
-where tensorboard is installed.
+where tensorboard is installed: the operators' record of a run. The
+program's spans and counters (layer boundaries on the profiler's clock,
+host syncs, kernel launches) are in `utils/trace.py`.
 """
 
 from __future__ import annotations

@@ -38,9 +38,9 @@ def test_occ_lookup_kernel_equals_plain(dev):
     occ = (torch.rand((3, 64, 64, 64), generator=gen) < 0.3).to(dev)
     xyz = ((torch.rand((37, 129, 3), generator=gen) - 0.5) * 5).to(dev)
     dt = torch.exp(torch.rand((37, 129), generator=gen) * -8).to(dev)
-    before = kernels.launch_counts["occ_lookup"]
+    before = kernels.launches()["occ_lookup"]
     got = tm.occupancy_lookup_bricks(xyz, dt, occ, cfg)
-    assert kernels.launch_counts["occ_lookup"] == before + 1
+    assert kernels.launches()["occ_lookup"] == before + 1
     assert torch.equal(got, tm.occupancy_lookup(xyz, dt, occ, cfg))
     with pytest.raises(ValueError):
         tm.occupancy_lookup_bricks(xyz.double(), dt, occ, cfg)
@@ -111,12 +111,12 @@ def test_brick3_encode_tiles_equal_plain(dev, levels, n, order):
     x = x.to(dev)
     packed = tb3.pack_brick3_table(table)
     ref = tb3._encode_plain(packed, x, cfg)
-    before = kernels.launch_counts["brick3_encode_fwd"]
+    before = kernels.launches()["brick3_encode_fwd"]
     for got in (tb3.hashgrid_encode_brick3_fwd_impl(table, x, cfg),
                 tb3.hashgrid_encode_brick3_fwd_impl(table, x, cfg,
                                                     packed=packed)):
         assert got.shape == (n, 2 * levels) and torch.equal(got, ref)
-    assert kernels.launch_counts["brick3_encode_fwd"] == before + 2
+    assert kernels.launches()["brick3_encode_fwd"] == before + 2
 
 
 def test_brick3_encode_f32_table_rounds_ties_to_even(dev):
@@ -150,9 +150,9 @@ def test_brick3_table_grad_kernel_equals_plain(dev):
     g = torch.randn((3001, 12), generator=gen)
     g[100:200] = 0.0                    # masked samples add nothing
     xd, gd = x.to(dev), g.to(dev)
-    before = kernels.launch_counts["brick3_table_grad"]
+    before = kernels.launches()["brick3_table_grad"]
     got = tb3.hashgrid_table_grad_brick3(xd, gd, cfg)
-    assert kernels.launch_counts["brick3_table_grad"] == before + 1
+    assert kernels.launches()["brick3_table_grad"] == before + 1
     ref = tb3._table_grad_plain(xd, gd, cfg)
     # the same f32 products; atomics add them in another order, which
     # changes from run to run: within 2 (n - 1) u sum|terms| per entry
@@ -180,12 +180,12 @@ def test_encode_autograd_launches_both_brick3_kernels(dev):
     table = (torch.rand((4, 1 << 12, 2), generator=gen) - 0.5).to(dev)
     table.requires_grad_(True)
     x = torch.rand((999, 3), generator=gen).to(dev)
-    fwd = kernels.launch_counts["brick3_encode_fwd"]
-    bwd = kernels.launch_counts["brick3_table_grad"]
+    fwd = kernels.launches()["brick3_encode_fwd"]
+    bwd = kernels.launches()["brick3_table_grad"]
     out = tb3.hashgrid_encode_brick3(table, x, cfg)
     out.float().sum().backward()
-    assert kernels.launch_counts["brick3_encode_fwd"] == fwd + 1
-    assert kernels.launch_counts["brick3_table_grad"] == bwd + 1
+    assert kernels.launches()["brick3_encode_fwd"] == fwd + 1
+    assert kernels.launches()["brick3_table_grad"] == bwd + 1
     ref = tb3._table_grad_plain(x, torch.ones((999, 8), device=dev), cfg)
     torch.testing.assert_close(table.grad, ref, rtol=1e-5, atol=1e-5)
 
@@ -225,9 +225,9 @@ def test_stream_table_grad_kernel_equals_plain(dev, name):
     if name == "slab_table_grad":
         assert (live == T - 1).any()
     kd, vd = keys.to(dev), vals.to(dev)
-    before = kernels.launch_counts[name]
+    before = kernels.launches()[name]
     got = tsg.stream_table_grad(name, kd, vd, T)
-    assert kernels.launch_counts[name] == before + 1
+    assert kernels.launches()[name] == before + 1
     ref = tsg.stream_table_grad_plain(name, kd, vd, T)
     tol, count = _order_tol(name, kd, vd, T)
     assert got.shape == (L, T, 2) and got.dtype == torch.float32
@@ -303,9 +303,9 @@ def test_table_grad_kernels_on_aggregation_streams(dev, case, n):
              thw.tcnn_stream(*thg.hashgrid_indices_cm(x, cfg), g)),
             ("slab_table_grad", (key, torch.stack([v0e, v1e, v0o, v1o]))),
             ("brick_table_grad", (bkey, torch.stack(bvals)))):
-        before = kernels.launch_counts[name]
+        before = kernels.launches()[name]
         got = tsg.stream_table_grad(name, keys, vals, T)
-        assert kernels.launch_counts[name] == before + 1
+        assert kernels.launches()[name] == before + 1
         ref = tsg.stream_table_grad_plain(name, keys, vals, T)
         tol, _ = _order_tol(name, keys, vals, T)
         assert ((got - ref).abs() <= tol).all(), name
@@ -325,12 +325,12 @@ def test_family_backward_launches_its_kernel(dev, impl, kernel):
     grads = []
     for where in (dev, torch.device("cpu")):
         t = table.to(where).requires_grad_(True)
-        before = dict(kernels.launch_counts)
+        before = kernels.launches()
         out = thg.encode_dispatch(t, x.to(where), cfg, torch.bfloat16, impl)
         (out.float() * g.to(where)).sum().backward()
         if where == dev:
-            assert kernels.launch_counts[kernel] == before[kernel] + 1
-            assert all(kernels.launch_counts[k] == before[k]
+            assert kernels.launches()[kernel] == before[kernel] + 1
+            assert all(kernels.launches()[k] == before[k]
                        for k in before if k != kernel)
             fwd = out.cpu()
         else:
@@ -347,9 +347,9 @@ def test_vmem_gather_kernels_equal_plain(dev):
              (x["tbl"], x["rows2d"])),
             ("rowgather_onehot", tvg.rowgather_onehot,
              tvg.rowgather_onehot_plain, (x["tbl"], x["row"], x["lane"]))):
-        before = kernels.launch_counts[name]
+        before = kernels.launches()[name]
         got = fn(*args)
-        assert kernels.launch_counts[name] == before + 1
+        assert kernels.launches()[name] == before + 1
         assert got.dtype == torch.int32 and got.shape == args[1].shape
         assert torch.equal(got, plain(*args))
         assert torch.equal(got.cpu(), fn(*(a.cpu() for a in args)))
@@ -398,9 +398,9 @@ def test_vmem_gather_entry_points_equal_plain_with_edges(dev, name, n_rows,
     x = tvg.make_inputs(elems, n_rows, dev, seed=n_rows)
     for draw in (x, tvg.with_edges(x, n_rows)):
         plain, args = _gather_args(name, draw)
-        before = kernels.launch_counts[name]
+        before = kernels.launches()[name]
         got = _gather_launch(name, *args)
-        assert kernels.launch_counts[name] == before + 1
+        assert kernels.launches()[name] == before + 1
         assert torch.equal(got, plain(*args))
     assert (got == -1).any()
     if name == "rowgather_onehot":
@@ -424,9 +424,9 @@ def test_vmem_gather_wrappers_pick_the_kernel_by_rows(dev, n_rows):
              {"tal_sublane": 0, "tal_sublane_l2": 0,
               "rowgather_onehot": 1})):
         plain, args = _gather_args(name, x)
-        before = dict(kernels.launch_counts)
+        before = kernels.launches()
         got = fn(*args)
-        assert {k: kernels.launch_counts[k] - before[k]
+        assert {k: kernels.launches()[k] - before[k]
                 for k in launched} == launched
         assert torch.equal(got, plain(*args))
 
@@ -439,14 +439,14 @@ def test_tal_sublane_staged_launch_refused_raises(dev):
     n_rows = tvg.STAGED_MAX_ROWS + 1
     x = tvg.make_inputs(128 * 64, n_rows, dev, seed=3)
     plain, args = _gather_args("tal_sublane", x)
-    before = kernels.launch_counts["tal_sublane"]
+    before = kernels.launches()["tal_sublane"]
     with pytest.raises(RuntimeError, match="failed to launch"):
         _gather_launch("tal_sublane", *args)
-    assert kernels.launch_counts["tal_sublane"] == before
+    assert kernels.launches()["tal_sublane"] == before
     y = tvg.make_inputs(128 * 64, 4096, dev, seed=3)
     plain, args = _gather_args("tal_sublane", y)
     got = _gather_launch("tal_sublane", *args)
-    assert kernels.launch_counts["tal_sublane"] == before + 1
+    assert kernels.launches()["tal_sublane"] == before + 1
     assert torch.equal(got, plain(*args))
 
 
@@ -469,13 +469,13 @@ def test_proto_gather_kernels_equal_plain(dev):
     n_rows, m = 5000, 200_003
     x = tpg.make_inputs(n_rows, m, dev)
     x["idx"][:1000] = 17                          # one row hit 1000+ times
-    before = kernels.launch_counts["pallas_gather"]
+    before = kernels.launches()["pallas_gather"]
     got = tpg.pallas_gather(x["table"], x["idx"])
-    assert kernels.launch_counts["pallas_gather"] == before + 1
+    assert kernels.launches()["pallas_gather"] == before + 1
     assert torch.equal(got, tpg.pallas_gather_plain(x["table"], x["idx"]))
-    before = kernels.launch_counts["pallas_scatter"]
+    before = kernels.launches()["pallas_scatter"]
     got = tpg.pallas_scatter(x["idx"], x["vals"], n_rows)
-    assert kernels.launch_counts["pallas_scatter"] == before + 1
+    assert kernels.launches()["pallas_scatter"] == before + 1
     # atomics add the same f32 terms in an order that changes from run to
     # run: within 2 (n - 1) u sum|terms| per entry, of the card's twin and
     # of the CPU's
@@ -548,9 +548,9 @@ def test_pallas_scatter_views_tails_outside_and_one_row(dev, case):
     idx, vals = _scatter_inputs(case, m, n_rows, dev)
     assert idx.shape == (m,) and vals.shape == (m, 2)
     assert idx.is_contiguous() and vals.is_contiguous()
-    before = kernels.launch_counts["pallas_scatter"]
+    before = kernels.launches()["pallas_scatter"]
     got = tpg.pallas_scatter(idx, vals, n_rows)
-    assert kernels.launch_counts["pallas_scatter"] == before + 1
+    assert kernels.launches()["pallas_scatter"] == before + 1
     ref = tpg.pallas_scatter_plain(idx, vals, n_rows)
     bound = tpg.scatter_order_bound(idx, vals, n_rows)
     assert ((got - ref).abs() <= bound).all()
@@ -601,9 +601,9 @@ def test_pallas_gather_views_tails_edges_and_one_row(dev, case):
     call."""
     table, idx = _gather_inputs(case, dev)
     assert idx.is_contiguous() and table.is_contiguous()
-    before = kernels.launch_counts["pallas_gather"]
+    before = kernels.launches()["pallas_gather"]
     got = tpg.pallas_gather(table, idx)
-    assert kernels.launch_counts["pallas_gather"] == before + 1
+    assert kernels.launches()["pallas_gather"] == before + 1
     torch.cuda.synchronize()
     assert got.shape == (idx.shape[0], 2)
     assert torch.equal(got.view(torch.int32), tpg.pallas_gather_plain(

@@ -342,14 +342,14 @@ def test_gather_edge_draw_mixes_every_edge_and_twin_takes_it_as_jnp():
 def test_cpu_calls_launch_no_kernel():
     tbl, flat, rows = _words(2)
     table, idx, vals = _rows(2)
-    before = {k: kernels.launch_counts[k] for k in NEW_KERNELS}
+    before = {k: kernels.launches()[k] for k in NEW_KERNELS}
     tvg.tal_sublane(_t(tbl.view(np.int32)), _t(rows))
     tvg.rowgather_onehot(_t(tbl.view(np.int32)),
                          _t((flat >> 7).reshape(-1, 128)),
                          _t((flat & 127).reshape(-1, 128)))
     tpg.pallas_gather(_t(table), _t(idx))
     tpg.pallas_scatter(_t(idx), _t(vals), T)
-    assert {k: kernels.launch_counts[k] for k in NEW_KERNELS} == before
+    assert {k: kernels.launches()[k] for k in NEW_KERNELS} == before
     assert all(k in kernels.KERNELS for k in NEW_KERNELS)
 
 
